@@ -1,0 +1,419 @@
+"""Batched mesh x plane cross-sections (PyTorch), walk path.
+
+Port of the parts of shoulder_tpu/ops/slicing.py that the landmark
+pipeline runs:
+
+  1. `sorted_geom` on faces presorted by z_min at ingest,
+  2. per-plane windows of the z-sorted faces (`_window_starts`),
+  3. per-plane compaction of the crossed faces and their oriented
+     intersection segments (`_compact_slice`),
+  4. the contour-chain walk over the compacted successor map
+     (ops/chain_walk.py: a CUDA kernel on the card),
+  5. largest-loop selection and arc-length resampling (`_post_walk`,
+     `_resample`),
+
+plus the single-plane raw loop of the surgical neck (`slice_raw_banded`,
+pointer doubling, as in the JAX package on every backend).
+
+JAX's per-slice `vmap` is an explicit leading slice dimension (S, ...)
+here.  Orientation is combinatorial (the sign pattern of the vertex
+heights), never a dot product: a plane that grazes a vertex gives a
+near-zero segment whose dot-product sign is noise.  Segments are directed
+z_hat x face_normal, so exterior loops come out CCW (positive area).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from shoulder_tpu_torch.ops import chain_walk
+from shoulder_tpu_torch.ops import signal
+
+_BIG = torch.iinfo(torch.int32).max
+
+
+class SliceStack(NamedTuple):
+    contours: torch.Tensor     # (S, N, 2) resampled largest-loop contours
+    centroids: torch.Tensor    # (S, 2) area centroid of the largest loop
+    areas: torch.Tensor        # (S,) largest-loop signed area
+    total_areas: torch.Tensor  # (S,) sum of signed loop areas
+    zs: torch.Tensor           # (S,)
+    overflow: torch.Tensor     # (S,) bool: band or compaction missed a face
+    open_edges: torch.Tensor   # (S,) bool: a chain dead-ended at an open edge
+
+
+class RawLoop(NamedTuple):
+    points: torch.Tensor    # (max_chain, 2) ordered loop points (padded)
+    n: torch.Tensor         # () number of valid points
+    area: torch.Tensor      # ()
+    centroid: torch.Tensor  # (2,)
+
+
+class SortedGeom(NamedTuple):
+    """Face geometry in z_min order, for banded slicing.
+
+    A plane at height z only crosses faces in a short window of the sorted
+    order, so per-plane work runs on a (band,) window of it.  Padding
+    faces carry z_min = +inf and z_max = -inf, so they never cross.
+    """
+
+    fvt: torch.Tensor       # (F, 9) f32 per face: x0 x1 x2 y0 y1 y2 z0 z1 z2
+    ids: torch.Tensor       # (F, 4) int32 per face: original id, 3 neighbor
+    #                         ids in the sorted frame (-1 none)
+    z_key: torch.Tensor     # (F,) non-decreasing search key, <= z_min slotwise
+    z_mm: torch.Tensor      # (F, 2) [z_min, z_max] per slot
+    cummax_z_max: torch.Tensor  # (F,) running max of z_max
+
+
+def sorted_geom(verts, faces, neighbors, face_orig) -> SortedGeom:
+    """Z-sorted face geometry for faces that ingest presorted by z_min.
+
+    `face_orig[i]` is slot i's original face index (loop starts use the
+    smallest original index).  Host and device transforms can disagree by
+    ulps near z-ties, so the window search key is a suffix running min of
+    z_min rather than z_min itself: every face with z_min <= z stays
+    below the key's insertion point of z.
+    """
+    fv = verts[faces.long()]                         # (F, 3, 3)
+    fvx, fvy, fvz = fv[:, :, 0], fv[:, :, 1], fv[:, :, 2]
+    z_min = fvz.amin(dim=1)
+    z_max = fvz.amax(dim=1)
+    degenerate = (faces[:, 0] == faces[:, 1]) & (faces[:, 1] == faces[:, 2])
+    z_min = torch.where(degenerate, torch.inf, z_min)
+    z_max = torch.where(degenerate, -torch.inf, z_max)
+    z_key = torch.flip(torch.cummin(torch.flip(z_min, [0]), dim=0).values, [0])
+    ids = torch.cat([face_orig.to(torch.int32)[:, None],
+                     neighbors.to(torch.int32)], dim=1)
+    return SortedGeom(
+        fvt=torch.cat([fvx, fvy, fvz], dim=1),
+        ids=ids,
+        z_key=z_key,
+        z_mm=torch.stack([z_min, z_max], dim=1),
+        cummax_z_max=torch.cummax(z_max, dim=0).values,
+    )
+
+
+def _window_starts(sg: SortedGeom, zs, band: int):
+    """Window offsets, insertion points and overflow flags of planes `zs`.
+
+    Window s is slots [lo[s], lo[s] + band) of the sorted order, ending
+    at the insertion point of zs[s].  Overflow: a face below the window
+    still reaches the plane (the band is too small for it).
+    """
+    n_faces = sg.z_key.shape[0]
+    starts = torch.searchsorted(sg.z_key, zs, side="left")
+    lo = torch.clamp(starts - band, 0, n_faces - band)
+    below = torch.clamp(lo - 1, min=0)
+    overflow = (lo > 0) & (sg.cummax_z_max[below] >= zs)
+    return lo, starts, overflow
+
+
+def _compact_slice(sg: SortedGeom, zmm_w, lo, z, k: int):
+    """Crossed faces of S planes compacted to the first k slots of a row.
+
+    zmm_w (S, band, 2) are the planes' [z_min, z_max] windows starting at
+    slot lo (S,).  A face crosses plane z iff z_min < z <= z_max (with the
+    d == 0 -> +1e-7 convention of the segment math).  Crossed faces keep
+    their window order in slots [0, ncross); slots past ncross are
+    invalid.  Returns, per row: crossed (S,k) bool, start and end (S,k,2)
+    segment endpoints, succ (S,k) compact successor (self where none),
+    orig (S,k) original face ids, overflow (S,) (more than k crossed),
+    open_edge (S,) (a crossed face has no crossed neighbor across its
+    exit edge).
+    """
+    n_rows, band = zmm_w.shape[0], zmm_w.shape[1]
+    dev = zmm_w.device
+    z = z[:, None]
+    crossed = (zmm_w[:, :, 1] >= z) & (zmm_w[:, :, 0] < z)
+    csum = torch.cumsum(crossed, dim=1)                   # int64
+    ncross = csum[:, -1]
+    over = ncross > k
+    rows = torch.arange(k, device=dev)
+    # order[j] = window position of the j-th crossed face
+    targets = (rows + 1).expand(n_rows, k).contiguous()
+    order = torch.searchsorted(csum, targets, side="left")
+    order = torch.clamp(order, max=band - 1)
+    valid = rows < ncross[:, None]
+    slot = lo[:, None] + order                            # (S, k)
+    g = sg.fvt[slot]                                      # (S, k, 9)
+    gi = sg.ids[slot]                                     # (S, k, 4)
+    gx, gy, gz = g[..., 0:3], g[..., 3:6], g[..., 6:9]
+    d = gz - z[..., None]
+    d = torch.where(d == 0.0, 1e-7, d)
+    pos = d > 0.0
+    pos_n = torch.roll(pos, -1, dims=2)
+    crossed_c = ((pos != pos_n).sum(dim=2) == 2) & valid
+    entry = torch.argmax((pos & ~pos_n).to(torch.int8), dim=2, keepdim=True)
+    exit_ = torch.argmax((~pos & pos_n).to(torch.int8), dim=2, keepdim=True)
+    denom = d - torch.roll(d, -1, dims=2)
+    denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
+    t = d / denom
+    px = gx + t * (torch.roll(gx, -1, dims=2) - gx)       # (S, k, 3)
+    py = gy + t * (torch.roll(gy, -1, dims=2) - gy)
+    start = torch.cat([px.gather(2, entry), py.gather(2, entry)], dim=2)
+    end = torch.cat([px.gather(2, exit_), py.gather(2, exit_)], dim=2)
+
+    # successor: the neighbor across the exit edge, as a compact slot.
+    # Valid slots hold distinct window positions, so an inverse map from
+    # window position to compact slot finds it (column `band` is a dump).
+    nbr_exit = gi[..., 1:4].gather(2, exit_)[..., 0].to(torch.int64)
+    succ_w = torch.where(nbr_exit >= 0, nbr_exit - lo[:, None], -1)
+    in_win = (succ_w >= 0) & (succ_w < band)
+    inv = torch.full((n_rows, band + 1), -1, dtype=torch.int64, device=dev)
+    inv.scatter_(1, torch.where(valid, order, band), rows.expand(n_rows, k))
+    inv[:, band] = -1
+    succ_idx = inv.gather(1, torch.where(in_win, succ_w, band))
+    has = succ_idx >= 0
+    open_edge = crossed_c & ~has
+    # injectivity: when a plane grazes a vertex, two faces can claim one
+    # successor; keep the smallest-slot predecessor and dead-end the rest
+    linked = crossed_c & has
+    tgt = torch.where(linked, succ_idx, k)
+    first_pred = torch.full((n_rows, k + 1), k, dtype=torch.int64, device=dev)
+    first_pred.scatter_reduce_(1, tgt, rows.expand(n_rows, k), reduce="amin")
+    keep = linked & (first_pred.gather(1, tgt) == rows)
+    succ = torch.where(keep, succ_idx, rows)
+    open_any = (open_edge & ~over[:, None]).any(dim=1)
+    return crossed_c, start, end, succ, gi[..., 0], over, open_any
+
+
+def _resample(points, n_valid, interp_num: int):
+    """Arc-length resample of S padded ordered loops, closing each first.
+
+    points (S, M, 2), n_valid (S,) -> (S, interp_num, 2).
+    """
+    n_rows, m = points.shape[0], points.shape[1]
+    dev, dt = points.device, points.dtype
+    idx = torch.arange(m + 1, device=dev)
+    nv = n_valid[:, None]
+    first = points[:, :1]
+    closed = torch.cat([points, first], dim=1)
+    # position n_valid holds the closing point; beyond it, repeat it so
+    # padded entries never influence the interpolation
+    closed = torch.where((idx[None, :] < nv)[..., None], closed, first)
+    seg = torch.linalg.vector_norm(torch.diff(closed, dim=1), dim=2)
+    seg = torch.where(idx[None, :-1] < nv, seg, 0.0)
+    cum = torch.cat([torch.zeros((n_rows, 1), dtype=dt, device=dev),
+                     torch.cumsum(seg, dim=1)], dim=1)
+    total = cum[:, -1:]
+    # strictly increase past the valid range so sampling never lands there
+    cum = torch.where(idx[None, :] <= nv, cum, total + (idx[None, :] - nv).to(dt))
+
+    step = total / (interp_num - 1)
+    step = torch.where(step > 0, step, 1.0)
+    first_sample = torch.ceil(cum / step).to(torch.int64)
+    d = torch.arange(interp_num, dtype=dt, device=dev)[None, :] * step
+    # sample j interpolates the segment of knot max{i : first_sample[i] <= j}
+    table = torch.cat([closed, cum[..., None]], dim=2)          # (S, M+1, 3)
+    pair = torch.cat([table, torch.cat([table[:, 1:], table[:, -1:]], dim=1)],
+                     dim=2)                                     # (S, M+1, 6)
+    g = signal.fill_from_scatter(first_sample, pair, interp_num, pair[:, 0])
+    g0, g1 = g[..., 0:3], g[..., 3:6]
+    c0, c1 = g0[..., 2], g1[..., 2]
+    t = torch.clamp((d - c0) / torch.where(c1 > c0, c1 - c0, 1.0), 0.0, 1.0)
+    p0, p1 = g0[..., 0:2], g1[..., 0:2]
+    return p0 + t[..., None] * (p1 - p0)
+
+
+def _post_walk(order, is_start, n, start, end, orig, interp_num: int):
+    """Finish S slices from the walk: pick the largest loop, roll it to
+    its smallest original face id, and resample it.
+
+    The walk emits each loop as a contiguous run of positions, so per-loop
+    moments are differences of one prefix sum.  Returns (contour
+    (S, interp_num, 2), centroid (S, 2), area (S,), total area (S,)).
+    """
+    n_rows, kk = order.shape
+    dev, dt = start.device, start.dtype
+    posn = torch.arange(kk, device=dev)
+    n = n[:, None].to(torch.int64)
+    valid = posn < n
+    f = torch.where(valid, order.to(torch.int64), 0)
+    f2 = f[..., None].expand(n_rows, kk, 2)
+    s_w = start.gather(1, f2)                       # walk order
+    e_w = end.gather(1, f2)
+    o_w = orig.to(torch.int64).gather(1, f)
+    sx, sy, ex, ey = s_w[..., 0], s_w[..., 1], e_w[..., 0], e_w[..., 1]
+    cr2 = torch.where(valid, sx * ey - ex * sy, 0.0)
+    run_start = valid & is_start
+    # a run ends just before the next start, or at the last valid position
+    run_end = valid & (torch.roll(run_start, -1, dims=1) | (posn == n - 1))
+
+    contrib = torch.stack([cr2, (sx + ex) * cr2, (sy + ey) * cr2], dim=2)
+    cum = torch.cumsum(contrib, dim=1)                          # (S, K, 3)
+    sor = torch.cummax(torch.where(run_start, posn, -1), dim=1).values
+    cum_pad = torch.cat([torch.zeros((n_rows, 1, 3), dtype=dt, device=dev),
+                         cum], dim=1)
+    before = cum_pad.gather(1, torch.clamp(sor, min=0)[..., None].expand(-1, -1, 3))
+    run = cum - before                          # run-local prefix moments
+    area_run = 0.5 * run[..., 0]
+
+    # best loop = max signed area over run ends; holes-only slices keep an
+    # empty contour
+    e = torch.argmax(torch.where(run_end, area_run, -torch.inf), dim=1,
+                     keepdim=True)
+    has = run_end.gather(1, e) & (area_run.gather(1, e) >= 0.0)
+    area_best = torch.where(has, area_run.gather(1, e), 0.0)
+    denom = torch.where(torch.abs(area_best) > 1e-12, 6.0 * area_best, 1.0)
+    run_e = run.gather(1, e[..., None].expand(-1, -1, 3))[:, 0, 1:3]
+    centroid = torch.where(has, run_e / denom, 0.0)
+    sor_e = sor.gather(1, e)
+    n_best = torch.where(has, e - sor_e + 1, 0)
+    p0 = torch.where(has, sor_e, 0)
+    nb = torch.clamp(n_best, min=1)
+    # the loop starts at its member with the smallest original face id:
+    # a roll of the contiguous span [p0, p0 + n_best)
+    in_span = (posn >= p0) & (posn < p0 + n_best)
+    og = torch.where(in_span, o_w, _BIG)
+    off = torch.argmin(og, dim=1, keepdim=True) - p0
+    ring = p0 + torch.remainder(posn + off, nb)
+    pts = s_w.gather(1, torch.clamp(ring, max=kk - 1)[..., None].expand(-1, -1, 2))
+    pts = torch.where((posn < n_best)[..., None], pts, 0.0)
+    contour = _resample(pts, n_best[:, 0], interp_num)
+    return contour, centroid, area_best[:, 0], 0.5 * cr2.sum(dim=1)
+
+
+def slice_stack(sg: SortedGeom, zs, interp_num: int, band: int,
+                compact_k: int = 512, chunk: int = 150) -> SliceStack:
+    """Cross-section contour stack of all planes `zs` of one mesh.
+
+    Compaction runs `chunk` planes at a time (it bounds the (chunk, band)
+    and (chunk, k, 9) intermediates); the walk is one launch over all
+    planes of the stack.
+    """
+    band = min(band, sg.z_key.shape[0])
+    k = min(compact_k, band)
+    los, _starts, win_over = _window_starts(sg, zs, band)
+    win = torch.arange(band, device=zs.device)
+    parts = []
+    for c0 in range(0, zs.shape[0], chunk):
+        lo = los[c0:c0 + chunk]
+        zmm_w = sg.z_mm[lo[:, None] + win]                  # (c, band, 2)
+        parts.append(_compact_slice(sg, zmm_w, lo, zs[c0:c0 + chunk], k))
+    crossed, start, end, succ, orig, over, open_edges = (
+        torch.cat(x, dim=0) for x in zip(*parts)
+    )
+    order, n, is_start = chain_walk.chain_walk_marked(
+        succ.to(torch.int32).contiguous(), crossed.to(torch.int32).contiguous()
+    )
+    contours, centroids, areas, total_areas = _post_walk(
+        order, is_start, n, start, end, orig, interp_num
+    )
+    return SliceStack(contours, centroids, areas, total_areas, zs,
+                      win_over | over, open_edges)
+
+
+def compact_points(points, mask, out_n: int):
+    """Pack masked rows to the front: (packed (out_n, D), count); rows
+    past count are zeros."""
+    order = torch.argsort((~mask).to(torch.int8), stable=True)[:out_n]
+    packed = points[order]
+    keep = mask[order]
+    packed = torch.where(keep[:, None], packed, 0.0)
+    return packed, torch.clamp(mask.sum(), max=out_n)
+
+
+def _iters_for(n: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(n, 2)))))
+
+
+def _label_loops(crossed, succ):
+    """Min-index loop labels via pointer doubling; uncrossed -> F."""
+    n_faces = succ.shape[0]
+    lab = torch.where(crossed, torch.arange(n_faces, device=succ.device),
+                      n_faces)
+    ptr = succ
+    for _ in range(_iters_for(n_faces)):
+        lab = torch.minimum(lab, torch.where(crossed, lab[ptr], lab))
+        ptr = ptr[ptr]
+    return lab
+
+
+def _loop_stats(crossed, start, end, lab, n_faces: int):
+    """Per-label signed area, area centroid, point count and mean point,
+    summed into F+1 slots (slot F collects the uncrossed faces)."""
+    dt, dev = start.dtype, start.device
+    cross2 = start[:, 0] * end[:, 1] - end[:, 0] * start[:, 1]
+    cross2 = torch.where(crossed, cross2, 0.0)
+
+    def seg_sum(v):
+        return torch.zeros(n_faces + 1, dtype=v.dtype, device=dev).index_add_(
+            0, lab, v)
+
+    area = 0.5 * seg_sum(cross2)
+    cx = seg_sum((start[:, 0] + end[:, 0]) * cross2)
+    cy = seg_sum((start[:, 1] + end[:, 1]) * cross2)
+    denom = torch.where(torch.abs(area) > 1e-12, 6.0 * area, 1.0)
+    centroid = torch.stack([cx, cy], dim=1) / denom[:, None]
+    count = seg_sum(crossed.to(torch.int64))
+    sx = seg_sum(torch.where(crossed, start[:, 0], 0.0))
+    sy = seg_sum(torch.where(crossed, start[:, 1], 0.0))
+    cnt = torch.clamp(count, min=1).to(dt)
+    mean_pt = torch.stack([sx, sy], dim=1) / cnt[:, None]
+    return area, centroid, count, mean_pt
+
+
+def _order_loop(crossed, start, succ, lab, best, count_best, max_chain: int,
+                is_rep):
+    """Ordered (max_chain, 2) points of the loop labelled `best`, starting
+    at its face marked `is_rep`, by pointer-jumping list ranking."""
+    n_faces = succ.shape[0]
+    rows = torch.arange(n_faces, device=succ.device)
+    member = crossed & (lab == best)
+    ptr = torch.where(is_rep, rows, succ)
+    rnk = torch.where(is_rep, 0, 1)
+    for _ in range(_iters_for(n_faces)):
+        rnk = rnk + rnk[ptr]
+        ptr = ptr[ptr]
+    position = torch.where(is_rep, 0, count_best - rnk)
+    position = torch.where(member & (position < max_chain), position, max_chain)
+    points = torch.zeros((max_chain + 1, 2), dtype=start.dtype,
+                         device=start.device)
+    points.index_copy_(0, position, start)
+    return points[:max_chain]
+
+
+def slice_raw_banded(sg: SortedGeom, z, band: int, max_chain: int = 2048,
+                     select: str = "largest", k: int = 512):
+    """Single-plane raw loop (ordered, not resampled) on a banded window.
+
+    select='largest' picks the max-area loop; select='central' the loop
+    (of at least 3 faces) whose mean point is nearest the z axis.  The
+    loop starts at its smallest original face id.  Returns (RawLoop,
+    overflow).
+    """
+    band = min(band, sg.z_key.shape[0])
+    k = min(k, band)
+    z1 = z.reshape(1)
+    lo, _start, win_over = _window_starts(sg, z1, band)
+    zmm_w = sg.z_mm[lo[:, None] + torch.arange(band, device=z.device)]
+    crossed, start, end, succ, orig, over, _open = _compact_slice(
+        sg, zmm_w, lo, z1, k
+    )
+    crossed, start, end, succ, orig = (
+        crossed[0], start[0], end[0], succ[0], orig[0].to(torch.int64)
+    )
+    lab = _label_loops(crossed, succ)
+    area, centroid, count, mean_pt = _loop_stats(crossed, start, end, lab, k)
+    if select == "largest":
+        best = torch.argmax(area[:k])
+    elif select == "central":
+        score = torch.abs(mean_pt[:k, 0]) + torch.abs(mean_pt[:k, 1])
+        score = torch.where(count[:k] >= 3, score, torch.inf)
+        best = torch.argmin(score)
+    else:
+        raise ValueError(select)
+    n_best = count[best]
+    min_orig = torch.full((k + 1,), _BIG, dtype=torch.int64, device=z.device)
+    min_orig.scatter_reduce_(0, lab, torch.where(crossed, orig, _BIG),
+                             reduce="amin")
+    is_rep = crossed & (lab == best) & (orig == min_orig[lab])
+    points = _order_loop(crossed, start, succ, lab, best, n_best, max_chain,
+                         is_rep)
+    return (
+        RawLoop(points, n_best, area[best], centroid[best]),
+        (win_over | over)[0],
+    )

@@ -1,0 +1,81 @@
+"""Bone batching and device placement (PyTorch).
+
+Port of the batch entry points of shoulder_tpu/pipeline/batch.py: build
+BoneTensors from ingested BoneSpecs on an explicit device, stack them
+into a batch, and run the landmark pipeline over the batch.  The batch
+runs bone by bone here; each of a bone's three slice stacks is one walk
+launch over its planes.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from shoulder_tpu_torch.io.ingest import BoneSpec
+from shoulder_tpu_torch.models import forest
+from shoulder_tpu_torch.models import unet as unet_mod
+from shoulder_tpu_torch.pipeline.landmarks import (
+    BoneTensors,
+    Landmarks,
+    compute_landmarks,
+)
+
+
+def _host_arrays(spec: BoneSpec) -> list[np.ndarray]:
+    if spec.face_orig is None:
+        raise ValueError(f"{spec.name}: faces must be presorted at ingest")
+    return [
+        np.asarray(spec.vertices, np.float32),
+        np.asarray(spec.faces, np.int32),
+        np.asarray(spec.neighbors, np.int32),
+        np.asarray(spec.obb_transform, np.float32),
+        np.float32(spec.z_bounds[0]),
+        np.float32(spec.z_bounds[1]),
+        np.float32(spec.z_length),
+        np.float32(spec.cutoff_pcts[0]),
+        np.float32(spec.cutoff_pcts[1]),
+        np.asarray(spec.face_orig, np.int32),
+    ]
+
+
+def bone_tensors(spec: BoneSpec, device) -> BoneTensors:
+    """Per-bone tensors on `device`."""
+    return BoneTensors(*(torch.as_tensor(a, device=device)
+                         for a in _host_arrays(spec)))
+
+
+def stack_bones(specs: Sequence[BoneSpec], device) -> BoneTensors:
+    """Stack BoneSpecs into a leading batch dimension on `device`: one
+    host-side stack and one copy per field."""
+    fields = zip(*(_host_arrays(s) for s in specs))
+    return BoneTensors(*(torch.as_tensor(np.stack(f), device=device)
+                         for f in fields))
+
+
+def compute_landmarks_batch(
+    bones: BoneTensors,
+    rf: forest.ForestParams | None = None,
+    proximal: bool = False,
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+    chunk: int = 150,
+    seg_model=None,
+) -> Landmarks:
+    """Landmarks of a stacked bone batch; every field gets a leading batch
+    dimension.  The forest and the UNet are loaded once per call when
+    not given."""
+    device = bones.verts.device
+    if rf is None:
+        rf = forest.load_params(device)
+    if cfg.segmenter == "unet" and seg_model is None:
+        seg_model = unet_mod.load_model(device)
+    per_bone = [
+        compute_landmarks(BoneTensors(*(f[b] for f in bones)), rf,
+                          proximal=proximal, cfg=cfg, chunk=chunk,
+                          seg_model=seg_model)
+        for b in range(bones.verts.shape[0])
+    ]
+    return Landmarks(*(torch.stack(f) for f in zip(*per_bone)))

@@ -1,0 +1,96 @@
+"""The port's host layer vs shoulder_tpu's, and the port's independence
+from JAX.
+
+The port carries its own copies of the numpy host modules (the card's
+machine has no JAX, and importing anything under shoulder_tpu imports
+jax), so its ingest must reproduce shoulder_tpu's BoneSpec.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from shoulder_tpu.io import ingest as jax_ingest
+from shoulder_tpu.io import stl
+from shoulder_tpu.io.testdata import synthetic_humerus
+from shoulder_tpu_torch.io import ingest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "shoulder_tpu"}
+
+
+@pytest.mark.parametrize("side,proximal", [("left", False),
+                                           ("right", False),
+                                           ("left", True)])
+def test_load_bone_matches_jax_package(tmp_path, side, proximal):
+    v, f = synthetic_humerus(side=side, proximal_only=proximal,
+                             rng_transform=np.random.default_rng(5))
+    path = tmp_path / "bone.stl"
+    stl.write_stl(path, v, f)
+    ref = jax_ingest.load_bone(path, proximal=proximal)
+    got = ingest.load_bone(path, proximal=proximal)
+    for name in ("faces", "neighbors", "face_orig", "vertices"):
+        assert np.array_equal(getattr(got, name), getattr(ref, name)), name
+    # the port takes the numpy OBB search, the JAX package its native
+    # twin: the same box to within float64 rounding of the search
+    assert np.allclose(got.obb_transform, ref.obb_transform, atol=1e-6)
+    assert np.allclose(got.z_bounds, ref.z_bounds, atol=1e-6)
+    assert np.allclose(got.cutoff_pcts, ref.cutoff_pcts)
+    assert (got.n_faces, got.n_verts) == (ref.n_faces, ref.n_verts)
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "shoulder_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imported_roots(p) if m in FORBIDDEN]
+    assert not bad, bad
+
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys, tempfile
+from pathlib import Path
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shoulder_tpu"):
+    sys.modules[name] = None          # any import of them now raises
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import shoulder_tpu_torch
+for mod in pkgutil.walk_packages(shoulder_tpu_torch.__path__,
+                                 "shoulder_tpu_torch."):
+    importlib.import_module(mod.name)
+from shoulder_tpu_torch.config import tiny_config
+from shoulder_tpu_torch.io import ingest, stl
+from shoulder_tpu_torch.io.testdata import synthetic_humerus
+v, f = synthetic_humerus(rng_transform=np.random.default_rng(1),
+                         n_rings=40, n_theta=32)
+with tempfile.TemporaryDirectory() as td:
+    p = Path(td) / "b.stl"
+    stl.write_stl(p, v, f)
+    spec = ingest.load_bone(p, config=tiny_config())
+assert spec.face_orig is not None
+leaked = [m for m in sys.modules if m.split(".")[0] in
+          ("jax", "flax", "orbax", "shoulder_tpu") and sys.modules[m]]
+assert not leaked, leaked
+print("NO_JAX_OK", spec.n_faces)
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT)],
+                       capture_output=True, text=True, timeout=300)
+    assert "NO_JAX_OK" in r.stdout, r.stderr[-3000:]
