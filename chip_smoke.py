@@ -16,7 +16,16 @@ Phases (any failure raises, so the exit code is non-zero):
      angle, retroversion and head radius, with no slice overflow, and the
      walk kernel must have been launched; one bone runs again on the CPU
      (plain walk) and must agree within 0.75 deg / 0.75 mm, bench.py's gate;
-  5. timing: 5 warm batches of 8, synchronized.
+  5. timing: 5 warm batches of 8, synchronized;
+  6. facade: the README flow through shoulder_tpu_torch.Humerus on the card
+     (canal on z through the origin, metrics equal to phase 4's bone 0
+     within 0.05 deg / 0.05 mm), the osteotomy probes, a plot, the three
+     slice views, and a ProximalHumerus checked against the same bone on
+     the CPU; the walk kernel must run in each of these paths;
+  7. cohort: process_cohort over the 8 STLs in batches of 4 (two batches,
+     one prefetch); each bone equal to phase 4 within 0.05 deg / 0.05 mm.
+
+The bone STLs live in one temporary directory for the whole run.
 
 The last three lines: a JSON object describing each kernel (launches in
 the main path's run, disagreement with the plain version, times), the
@@ -106,7 +115,144 @@ def random_walk_rows(rng, k, n_rows):
     return succ, crossed
 
 
-def main():
+def gate_like(name, got, want):
+    """side equal, neck-shaft / retroversion / radius within 0.05 of
+    phase 4's values for the same bone (one card, one program)."""
+    if got[0] != want[0]:
+        raise AssertionError(f"{name}: side {got[0]}, phase 4 {want[0]}")
+    for label, g, w in zip(("neck-shaft", "retroversion", "radius"),
+                           got[1:], want[1:]):
+        if not abs(g - w) < 0.05:
+            raise AssertionError(f"{name}: {label} {g} vs phase 4 {w}")
+
+
+def phase4_bone(lm_np, i):
+    return ("left" if bool(lm_np.side_is_left[i]) else "right",
+            float(lm_np.neckshaft[i]), float(lm_np.retroversion[i]),
+            float(lm_np.radius_curvature[i]))
+
+
+def facade_phase(td, path, dev, lm_np, smi):
+    """Phase 6: the README flow through the public API on the card."""
+    import shoulder_tpu_torch as stt
+    from shoulder_tpu_torch.io import stl
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+    from shoulder_tpu_torch.ops import chain_walk
+
+    counts = {}
+    chain_walk.launch_count = 0
+    t0 = time.perf_counter()
+    hum = stt.Humerus(path, device=dev)
+    ingest_s = time.perf_counter() - t0
+    hum.apply_csys_canal_transepiconylar()
+    first_s = time.perf_counter() - t0
+    counts["landmarks"] = chain_walk.launch_count
+    log(f"facade: Humerus first landmark in {first_s * 1e3:.1f} ms wall "
+        f"(ingest {ingest_s * 1e3:.1f} ms, landmarks and csys "
+        f"{(first_s - ingest_s) * 1e3:.1f} ms), "
+        f"{counts['landmarks']} walk launches ({smi})")
+
+    canal = hum.canal.axis()
+    d = (canal[0] - canal[1]) / np.linalg.norm(canal[0] - canal[1])
+    if not (np.allclose(np.abs(d), [0, 0, 1], atol=1e-4)
+            and np.allclose(canal.mean(0), 0, atol=1e-3)):
+        raise AssertionError(f"canal axis not on z through 0: {canal}")
+    for name, arr in (("te", hum.trans_epiconylar.axis()),
+                      ("groove", hum.bicipital_groove.axis()),
+                      ("anp", hum.anatomic_neck.points())):
+        if arr.ndim != 2 or arr.shape[1] != 3 or not np.isfinite(arr).all():
+            raise AssertionError(f"facade {name}: shape {arr.shape}")
+    got = (hum.side(), hum.neckshaft(), hum.retroversion(),
+           hum.radius_curvature())
+    log(f"facade bone 0: side {got[0]}, neck-shaft {got[1]:.3f}, "
+        f"retroversion {got[2]:.3f}, radius {got[3]:.3f}")
+    gate_like("facade", got, phase4_bone(lm_np, 0))
+
+    # the osteotomy probes of the verify notes
+    ost = stt.HumeralHeadOsteotomy(hum)
+    if abs(ost.neckshaft_rel) > 1e-4 or abs(ost.retroversion_rel) > 1e-4:
+        raise AssertionError("native cut is not at 0 / 0")
+    ost.offest_neckshaft(5.0)
+    if abs(ost.neckshaft_rel - 5.0) > 1e-4:
+        raise AssertionError(f"neckshaft_rel {ost.neckshaft_rel} after +5")
+    try:
+        ost.offset_depth(1.0, "bogus")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("offset_depth accepted a bogus direction")
+    head, rest = ost.resect_mesh()
+    n_head, n_rest, n_all = len(head.faces), len(rest.faces), len(hum.mesh.faces)
+    log(f"osteotomy: {n_all} faces -> head {n_head} + shaft {n_rest}")
+    if not (n_head > 50 and n_rest > 50 and n_head + n_rest > n_all):
+        raise AssertionError("resect_mesh split is implausible")
+    if "mesh3d" not in stt.Plot(hum).figure.to_html():
+        raise AssertionError("plot has no mesh3d trace")
+
+    # the slice views: one walk launch each
+    before = chain_walk.launch_count
+    for name in ("full_slices", "proximal_slices", "distal_slices"):
+        view = getattr(hum, name)
+        xy, areas = view.ixy((0.1, 0.9)), view.areas1((0.1, 0.9))
+        log(f"view {name}: contours {xy.shape}, areas "
+            f"{areas.min():.1f}..{areas.max():.1f} mm^2")
+        if not (np.isfinite(xy).all() and (areas > 0).all()):
+            raise AssertionError(f"{name}: non-finite contour or empty slice")
+    counts["views"] = chain_walk.launch_count - before
+
+    # a proximal-only bone, on the card and on the CPU (plain walk)
+    v, f = synthetic_humerus(side="left", proximal_only=True,
+                             rng_transform=np.random.default_rng(8))
+    prox_path = os.path.join(td, "proximal.stl")
+    stl.write_stl(prox_path, v, f)
+    before = chain_walk.launch_count
+    ph = stt.ProximalHumerus(prox_path, device=dev)
+    card = (ph.side(), ph.neckshaft(), ph.radius_curvature())
+    counts["proximal"] = chain_walk.launch_count - before
+    ph_cpu = stt.ProximalHumerus(prox_path, device="cpu")
+    cpu = (ph_cpu.side(), ph_cpu.neckshaft(), ph_cpu.radius_curvature())
+    log(f"ProximalHumerus: card {card}, cpu {cpu}")
+    if card[0] != "left" or cpu[0] != "left":
+        raise AssertionError("ProximalHumerus got the side wrong")
+    if not (abs(card[1] - cpu[1]) < 0.75 and abs(card[2] - cpu[2]) < 0.75):
+        raise AssertionError("ProximalHumerus card and cpu differ")
+
+    log(f"facade walk launches: {counts}")
+    for name, least in (("landmarks", 3), ("views", 3), ("proximal", 2)):
+        if counts[name] < least:
+            raise AssertionError(f"facade {name}: {counts[name]} walk "
+                                 f"launches, expected at least {least}")
+    return counts
+
+
+def cohort_phase(paths, dev, lm_np, sides, smi):
+    """Phase 7: process_cohort over the STLs, ingest included."""
+    from shoulder_tpu_torch import cohort
+    from shoulder_tpu_torch.ops import chain_walk
+
+    chain_walk.launch_count = 0
+    t0 = time.perf_counter()
+    res = cohort.process_cohort(paths, device=dev, batch_size=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chain_walk.launch_count
+    log(f"cohort: {len(res)} bones in {wall:.2f} s, "
+        f"{len(res) / wall:.3f} bones/s with ingest, batch 4, "
+        f"{launches} walk launches ({smi})")
+    if len(res) != len(paths) or launches == 0:
+        raise AssertionError("cohort lost bones or never launched the walk")
+    for i, r in enumerate(res):
+        got = (r["side"], r["neckshaft_deg"], r["retroversion_deg"],
+               r["radius_curvature_mm"])
+        if r["side"] != sides[i]:
+            raise AssertionError(f"cohort bone {i}: side {r['side']}")
+        gate_like(f"cohort bone {i}", got, phase4_bone(lm_np, i))
+    summary = cohort.cohort_summary(res)
+    log(f"cohort summary: {summary}")
+    return launches
+
+
+def main(td):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's main path "
                          "needs one card")
@@ -134,15 +280,14 @@ def main():
 
     # ---- ingest (host) and models
     sides = ["left", "right"] * (BATCH // 2)
-    specs = []
+    specs, paths = [], []
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as td:
-        for i, side in enumerate(sides):
-            v, f = synthetic_humerus(side=side,
-                                     rng_transform=np.random.default_rng(i))
-            path = os.path.join(td, f"bone{i}.stl")
-            stl.write_stl(path, v, f)
-            specs.append(ingest.load_bone(path))
+    for i, side in enumerate(sides):
+        v, f = synthetic_humerus(side=side,
+                                 rng_transform=np.random.default_rng(i))
+        paths.append(os.path.join(td, f"bone{i}.stl"))
+        stl.write_stl(paths[-1], v, f)
+        specs.append(ingest.load_bone(paths[-1]))
     log(f"ingest: {BATCH} bones in {time.perf_counter() - t0:.1f} s")
     rf = forest.load_params(dev)
     seg = unet.load_model(dev)
@@ -271,12 +416,18 @@ def main():
     log(f"throughput: {BATCH / p50:.3f} bones/s, p50 {p50 * 1e3:.1f} "
         f"ms/batch of {BATCH} ({smi})")
 
+    facade_launches = facade_phase(td, paths[0], dev, lm_np, smi)
+    cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
+
     print(json.dumps({"kernels": [{
         "name": "chain_walk",
         "route": "cuda",
         "source": "shoulder_tpu_torch/csrc/chain_walk.cu",
         "replaces": "shoulder_tpu/ops/pallas_chain.py:52",
         "launches": launches,
+        "launches_per_phase": {"pipeline": launches,
+                               "facade": facade_launches,
+                               "cohort": cohort_launches},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -290,4 +441,5 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    with tempfile.TemporaryDirectory() as tmp:
+        main(tmp)

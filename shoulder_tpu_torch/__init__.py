@@ -7,6 +7,11 @@ counterpart is easy to find.  The one Pallas TPU kernel of the main path,
 the contour-chain walk, is a hand-written CUDA kernel here
 (csrc/chain_walk.cu, ops/chain_walk.py).
 
+The public API is the JAX package's: `Humerus`, `ProximalHumerus`,
+`HumeralHeadOsteotomy`, `Plot` (imported lazily) and
+`cohort.process_cohort`, each with one more keyword, `device` (default
+"cuda").
+
 This package never imports jax, flax, orbax or shoulder_tpu: the machine
 with the card has none of them.
 
@@ -21,4 +26,20 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+__all__ = ["Humerus", "ProximalHumerus", "Plot", "HumeralHeadOsteotomy"]
+
+_EXPORTS = {
+    "Humerus": "shoulder_tpu_torch.bone",
+    "ProximalHumerus": "shoulder_tpu_torch.bone",
+    "HumeralHeadOsteotomy": "shoulder_tpu_torch.arthroplasty",
+    "Plot": "shoulder_tpu_torch.plotting",
+}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(name)

@@ -10,6 +10,7 @@ tree levels off one row gather of a per-node subtree table.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +34,13 @@ class ForestParams:
 
 
 def load_params(device, npz_path=DEFAULT_NPZ) -> ForestParams:
+    """The forest on `device`, read once per (device, file) per process;
+    callers share the tensors and must not write to them."""
+    return _load_params(str(torch.device(device)), str(npz_path))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_params(device: str, npz_path: str) -> ForestParams:
     with np.load(npz_path) as z:
         return ForestParams(**convert.forest_tensors(
             {k: z[k] for k in z.files}, device))

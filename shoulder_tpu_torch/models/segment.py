@@ -5,26 +5,27 @@ sphere-consensus segmenter (RANSAC init, Tukey IRLS, first-departure rim
 cut, CNN support gate with its rescue branch), and the longest cyclic run
 per row.
 
-One divergence: the JAX package draws its 128 RANSAC quadruples inside
-sphere_segment with `jax.random.randint(PRNGKey(17), (128, 4), 0, top_n)`,
-whose bits PyTorch cannot reproduce.  Here the caller passes the
-quadruples (`hyp_idx`); `ransac_indices` draws them from a
-torch.Generator seeded with 17, and the parity tests pass JAX's own.
+The 128 RANSAC quadruples are JAX's own draw,
+`jax.random.randint(PRNGKey(17), (128, 4), 0, top_n)`, reproduced bit for
+bit in numpy by utils/jax_prng.py (`ransac_indices`).  The caller passes
+them in (`hyp_idx`), so tests can substitute their own.
 """
 
 from __future__ import annotations
 
 import torch
 
+from shoulder_tpu_torch.utils import jax_prng
+
 N_HYP = 128
 
 
 def ransac_indices(top_n: int, device, seed: int = 17):
-    """(N_HYP, 4) int64 RANSAC quadruples in [0, top_n), drawn on the CPU
-    from a torch.Generator seeded with `seed` (the same on every device)."""
-    gen = torch.Generator().manual_seed(seed)
-    idx = torch.randint(0, top_n, (N_HYP, 4), generator=gen)
-    return idx.to(device)
+    """(N_HYP, 4) int64 RANSAC quadruples in [0, top_n): the JAX package's
+    draw `jax.random.randint(PRNGKey(seed), (128, 4), 0, top_n)`, made on
+    the host and copied to `device`."""
+    idx = jax_prng.randint(seed, (N_HYP, 4), 0, top_n)
+    return torch.from_numpy(idx).to(device=device, dtype=torch.int64)
 
 
 def _longest_cyclic_run_per_row(mask):

@@ -16,6 +16,7 @@ package's checkpoint, exported to models/params/unet.npz
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -85,7 +86,13 @@ class UNet(nn.Module):
 
 def load_model(device, npz_path=DEFAULT_NPZ) -> UNet:
     """The shipped UNet on `device`, convolutions in bfloat16 except the
-    float32 head, in eval mode."""
+    float32 head, in eval mode.  Read once per (device, file) per
+    process; callers share the model."""
+    return _load_model(str(torch.device(device)), str(npz_path))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_model(device: str, npz_path: str) -> UNet:
     with np.load(npz_path) as z:
         flat = {k: z[k] for k in z.files}
     model = UNet()

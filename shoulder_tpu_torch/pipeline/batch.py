@@ -51,9 +51,23 @@ def bone_tensors(spec: BoneSpec, device) -> BoneTensors:
 def stack_bones(specs: Sequence[BoneSpec], device) -> BoneTensors:
     """Stack BoneSpecs into a leading batch dimension on `device`: one
     host-side stack and one copy per field."""
-    fields = zip(*(_host_arrays(s) for s in specs))
-    return BoneTensors(*(torch.as_tensor(np.stack(f), device=device)
-                         for f in fields))
+    return to_device(stack_host(specs), device)
+
+
+def stack_host(specs: Sequence[BoneSpec], pin: bool = False) -> BoneTensors:
+    """BoneSpecs stacked into host tensors with a leading batch dimension,
+    in page-locked memory when `pin` (so a later copy can be
+    asynchronous).  Host work only: no stream, no kernel."""
+    fields = (torch.from_numpy(np.stack(f))
+              for f in zip(*(_host_arrays(s) for s in specs)))
+    return BoneTensors(*(t.pin_memory() if pin else t for t in fields))
+
+
+def to_device(host: BoneTensors, device) -> BoneTensors:
+    """Copy host bone tensors to `device` on the current stream; from
+    pinned memory the copies are asynchronous, so the caller keeps `host`
+    alive until they have run."""
+    return BoneTensors(*(t.to(device, non_blocking=True) for t in host))
 
 
 def compute_landmarks_batch(
@@ -79,3 +93,9 @@ def compute_landmarks_batch(
         for b in range(bones.verts.shape[0])
     ]
     return Landmarks(*(torch.stack(f) for f in zip(*per_bone)))
+
+
+def landmarks_to_numpy(lm: Landmarks) -> Landmarks:
+    """Landmarks as numpy arrays: one device-to-host copy per field, made
+    after the whole bone is computed."""
+    return Landmarks(*(x.cpu().numpy() for x in lm))

@@ -458,8 +458,8 @@ def compute_landmarks(
 
     `seg_model`: the UNet (models.unet.load_model) when cfg.segmenter is
     "unet"; loaded here when not given.  `hyp_idx`: the (128, 4) RANSAC
-    quadruples of the sphere segmenter; by default drawn from a
-    torch.Generator seeded with 17 (models.segment.ransac_indices).
+    quadruples of the sphere segmenter; by default JAX's own draw
+    (models.segment.ransac_indices).
     """
     if cfg.segmenter == "unet" and seg_model is None:
         seg_model = unet_mod.load_model(bone.verts.device)

@@ -2,11 +2,21 @@
 
 Port of shoulder_tpu/utils/geometry.py: the same formulas on torch
 tensors.  Functions take tensors and return tensors on the same device.
+`host_f32` runs one of them on numpy inputs the way the JAX facade does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def host_f32(fn, *arrays) -> np.ndarray:
+    """fn over float32 CPU tensors of numpy `arrays`, as a numpy float32
+    array.  The JAX facade calls the geometry on float64 numpy inputs
+    with x64 off, so JAX computes and returns them in float32."""
+    args = (torch.as_tensor(np.asarray(a), dtype=torch.float32) for a in arrays)
+    return fn(*args).numpy()
 
 
 def linspace(start, stop, num: int, endpoint: bool = True, device=None):
@@ -28,6 +38,11 @@ def transform_pts(pts, transform):
     return pts @ transform[:3, :3].T + transform[:3, 3]
 
 
+def transform_vecs(vecs, transform):
+    """Rotate (N,3) direction vectors by the rotation part of a transform."""
+    return vecs @ transform[:3, :3].T
+
+
 def inv_transform(transform):
     """Invert a rigid 4x4 transform as [R^-1, -R^-1 t] (general 3x3
     inverse, as the reference does)."""
@@ -37,6 +52,13 @@ def inv_transform(transform):
     last = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype,
                         device=top.device)
     return torch.cat([top, last], dim=0)
+
+
+def translate_transform(translation):
+    """4x4 transform from a 3-vector translation."""
+    out = torch.eye(4, dtype=translation.dtype, device=translation.device)
+    out[:3, 3] = translation.reshape(3)
+    return out
 
 
 def unit_vector(p1, p2):
@@ -76,6 +98,15 @@ def unitxyz_to_spherical(xyz):
     theta = torch.atan2(xyz[1], xyz[0])
     phi = torch.arccos(xyz[2] / r)
     return torch.stack([r, torch.rad2deg(theta), torch.rad2deg(phi)])
+
+
+def spherical_to_unitxyz(sphr):
+    """Inverse of unitxyz_to_spherical: [r, theta_deg, phi_deg] -> xyz."""
+    theta = torch.deg2rad(sphr[1])
+    phi = torch.deg2rad(sphr[2])
+    return torch.stack([sphr[0] * torch.sin(phi) * torch.cos(theta),
+                        sphr[0] * torch.sin(phi) * torch.sin(theta),
+                        sphr[0] * torch.cos(phi)])
 
 
 def plane_transform(origin, normal):

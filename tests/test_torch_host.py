@@ -82,11 +82,14 @@ with tempfile.TemporaryDirectory() as td:
     p = Path(td) / "b.stl"
     stl.write_stl(p, v, f)
     spec = ingest.load_bone(p, config=tiny_config())
-assert spec.face_orig is not None
+    assert spec.face_orig is not None
+    hum = shoulder_tpu_torch.Humerus(p, config=tiny_config(), device="cpu")
+    side = hum.side()
+assert side in ("left", "right")
 leaked = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "flax", "orbax", "shoulder_tpu") and sys.modules[m]]
 assert not leaked, leaked
-print("NO_JAX_OK", spec.n_faces)
+print("NO_JAX_OK", spec.n_faces, side)
 """
 
 
