@@ -4,32 +4,47 @@
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: a CUDA card must be present (there is no CPU fallback);
-  2. build: compile the contour-chain walk kernel from csrc/ with nvcc;
-  3. kernel vs plain: the walk kernel against its plain PyTorch version on
-     random loop rows, an empty slice, and the real (succ, crossed) rows of
-     all three slice stacks of one bone at DEFAULT_CONFIG: exact equality
-     of n, is_start and order[:n]; both timed at the main path's shapes;
+  2. build: compile every kernel of csrc/ into one library with nvcc (one
+     nvcc per source, run together) and print ptxas's register, spill and
+     shared-memory lines;
+  3. walk kernel vs plain: the standalone walk kernel (csrc/chain_walk.cu)
+     against its plain PyTorch version on random loop rows, an empty
+     slice, and the real (succ, crossed) rows of bone 0's three slice
+     stacks (made by the plain compaction on the card): exact equality of
+     n, is_start and order[:n]; both timed at the proximal stack's shape;
   4. pipeline: ingest 8 synthetic humeri (4 left, 4 right) with the port's
      own ingest and run compute_landmarks_batch at DEFAULT_CONFIG with the
      UNet segmenter on the card; every bone must get its side right and
      land within 3 deg / 3 deg / 1 mm of the constructed neck-shaft
-     angle, retroversion and head radius, with no slice overflow, and the
-     walk kernel must have been launched; one bone runs again on the CPU
-     (plain walk) and must agree within 0.75 deg / 0.75 mm, bench.py's gate;
-  5. timing: 5 warm batches of 8, synchronized;
-  6. facade: the README flow through shoulder_tpu_torch.Humerus on the card
+     angle, retroversion and head radius, with no slice overflow; the
+     fused slice-stack kernel must have been launched exactly once per
+     stack (24), the standalone walk never, and the plain compaction only
+     for the surgical-neck plane (8); one bone runs again on the CPU
+     (plain composition) and must agree within 0.75 deg / 0.75 mm,
+     bench.py's gate;
+  5. slice-stack kernel vs plain: every stack of phase 4 (3 per bone, 8
+     bones) against the plain composition on the card, plus
+     bone 0's edge planes (above and below the bone, at exact vertex
+     heights) and a k = 64 call that overflows: overflow and open_edges
+     equal, contours and centroids within 1e-3 mm, areas within 0.01
+     mm^2; the rows whose best loop differs are counted; kernel and plain
+     times per stack, and each stage's time inside a block from the
+     kernel's timed build;
+  6. timing: 5 warm batches of 8, synchronized;
+  7. facade: the README flow through shoulder_tpu_torch.Humerus on the card
      (canal on z through the origin, metrics equal to phase 4's bone 0
      within 0.05 deg / 0.05 mm), the osteotomy probes, a plot, the three
      slice views, and a ProximalHumerus checked against the same bone on
-     the CPU; the walk kernel must run in each of these paths;
-  7. cohort: process_cohort over the 8 STLs in batches of 4 (two batches,
-     one prefetch); each bone equal to phase 4 within 0.05 deg / 0.05 mm.
+     the CPU; slice-stack launches 3 / 3 / 2, walk launches 0;
+  8. cohort: process_cohort over the 8 STLs in batches of 4 (two batches,
+     one prefetch); each bone equal to phase 4 within 0.05 deg / 0.05 mm;
+     24 slice-stack launches, no walk launch.
 
 The bone STLs live in one temporary directory for the whole run.
 
 The last three lines: a JSON object describing each kernel (launches in
-the main path's run, disagreement with the plain version, times), the
-card's name and power limit as nvidia-smi gives them, and
+the main path's run, disagreement with the plain version, times, bound),
+the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
 
@@ -46,6 +61,13 @@ import torch
 BATCH = 8
 REPS = 5
 TRUTH = dict(neck_shaft_deg=135.0, retroversion_deg=25.0, head_radius=24.0)
+STACKS = ("full", "proximal", "distal")
+# one H100 SXM (NVIDIA's data sheet): HBM rate and float32 rate outside the
+# tensor cores, at the full 700 W
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# the tolerances of tests/test_slice_kernel.py:179-186
+TOL_MM, TOL_MM2 = 1e-3, 0.01
 
 
 def log(msg):
@@ -53,11 +75,17 @@ def log(msg):
 
 
 def timed_cuda(fn, reps):
-    """Mean ms per call of fn() over `reps` calls, by CUDA events."""
+    """Mean ms per call of fn() over `reps` calls, by CUDA events.
+
+    The card first spins for about 50 ms, so the host enqueues the calls
+    while the queue is still busy: for a kernel whose wrapper takes longer
+    on the host than the kernel takes on the card, the events then see
+    the kernels back to back (device time), not the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     t0.record()
     for _ in range(reps):
         fn()
@@ -82,6 +110,109 @@ def recording(module, name, sink):
         yield sink
     finally:
         setattr(module, name, fn)
+
+
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move n_bytes and do n_ops float32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def walk_work(succ, n_visits):
+    """Bytes and operations of one walk over (R, K) rows: succ and crossed
+    read once, order, is_start and n written once; about 4 integer
+    operations per visited face."""
+    rows, k = succ.shape
+    return rows * k * (4 + 4 + 4 + 1) + rows * 4, 4 * n_visits
+
+
+def stack_args(args):
+    """(sg, zs, interp_num, band, k) of a recorded slice_stack call, with
+    band and k clamped as slice_stack clamps them."""
+    sg, zs, interp_num, band, compact_k = args[:5]
+    band = min(band, sg.z_key.shape[0])
+    return sg, zs, interp_num, band, min(compact_k, band)
+
+
+def searched_keys(z_key, zs):
+    """Distinct z_key entries that the planes' binary searches read (the
+    kernel's searchsorted, side left): the top levels are the same keys
+    for every plane, and count once."""
+    keys, zs = z_key.cpu().numpy(), zs.cpu().numpy()
+    a = np.zeros(zs.shape, np.int64)
+    b = np.full(zs.shape, keys.shape[0], np.int64)
+    seen = set()
+    while (live := a < b).any():
+        mid = (a + b) >> 1
+        seen.update(mid[live].tolist())
+        right = live & (keys[np.minimum(mid, keys.shape[0] - 1)] < zs)
+        a = np.where(right, mid + 1, a)
+        b = np.where(live & ~right, mid, b)
+    return len(seen)
+
+
+def slice_stack_work(sg, zs, interp_num, band, k):
+    """Bytes and float operations the fused kernel needs for one stack,
+    counted from these inputs: each z_mm row of the union of the planes'
+    windows, each fvt/ids row of a kept crossed face and each z_key entry
+    the binary searches touch and each cummax_z_max entry the overflow
+    tests read (at lo - 1, lo > 0) read once, one z per plane; every
+    output written once.  Operations: about 40 per kept face (segment,
+    moments, arc length) and 20 per sample."""
+    from shoulder_tpu_torch.ops import slicing
+
+    n_faces, n_planes = sg.z_key.shape[0], zs.shape[0]
+    los, _starts, _over = slicing._window_starts(sg, zs, band)
+    cummax_read = int(torch.unique(los[los > 0]).numel())
+    cover = np.zeros(n_faces + 1, np.int64)
+    np.add.at(cover, los.cpu().numpy(), 1)
+    np.add.at(cover, los.cpu().numpy() + band, -1)
+    window_rows = int((np.cumsum(cover)[:n_faces] > 0).sum())
+    idx = los[:, None] + torch.arange(band, device=zs.device)
+    zmm = sg.z_mm[idx]
+    crossed = (zmm[..., 1] >= zs[:, None]) & (zmm[..., 0] < zs[:, None])
+    kept = crossed & (torch.cumsum(crossed, dim=1) <= k)
+    gathered = int(torch.unique(idx[kept]).numel())
+    reads = (window_rows * 8 + gathered * (9 * 4 + 4 * 4)
+             + searched_keys(sg.z_key, zs) * 4 + cummax_read * 4
+             + n_planes * 4)
+    writes = n_planes * (interp_num * 8 + 8 + 4 + 4 + 1 + 1)
+    ops = 40 * int(kept.sum()) + 20 * n_planes * interp_num
+    return reads + writes, ops
+
+
+def stack_disagreement(got, want):
+    """Largest differences between two SliceStacks and the rows whose
+    best loop differs (area or centroid beyond its tolerance); raises
+    when the overflow or open-edge flags differ."""
+    if not (torch.equal(got.overflow, want.overflow)
+            and torch.equal(got.open_edges, want.open_edges)):
+        raise AssertionError("overflow / open_edges differ")
+    da = (got.areas - want.areas).abs()
+    dc = (got.centroids - want.centroids).abs().amax(dim=1)
+    return {
+        "contour_mm": float((got.contours - want.contours).abs().max()),
+        "centroid_mm": float(dc.max()),
+        "area_mm2": float(da.max()),
+        "total_area_mm2": float((got.total_areas - want.total_areas).abs().max()),
+        "rows": int(da.numel()),
+        "loop_differs": int(((da > TOL_MM2) | (dc > TOL_MM)).sum()),
+        "overflow_rows": int(want.overflow.sum()),
+    }
+
+
+def edge_planes(sg):
+    """Planes above and below the bone, and planes at exact vertex
+    heights (z_min of real faces)."""
+    real = torch.isfinite(sg.z_mm[:, 0])
+    z_lo, z_hi = float(sg.z_mm[real, 0].min()), float(sg.z_mm[real, 1].max())
+    z_vert = sg.z_mm[real, 0]
+    z_vert = z_vert[len(z_vert) // 9:: len(z_vert) // 9][:8]
+    edge = torch.tensor([z_hi + 5.0, z_hi + 1e-3, z_lo - 1e-3, z_lo - 5.0],
+                        device=z_vert.device)
+    return torch.cat([edge, z_vert]).contiguous()
 
 
 def walk_disagreement(kernel_out, plain_out):
@@ -137,20 +268,21 @@ def facade_phase(td, path, dev, lm_np, smi):
     import shoulder_tpu_torch as stt
     from shoulder_tpu_torch.io import stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
-    from shoulder_tpu_torch.ops import chain_walk
+    from shoulder_tpu_torch.ops import chain_walk, slicing
 
     counts = {}
     chain_walk.launch_count = 0
+    slicing.launch_count = 0
     t0 = time.perf_counter()
     hum = stt.Humerus(path, device=dev)
     ingest_s = time.perf_counter() - t0
     hum.apply_csys_canal_transepiconylar()
     first_s = time.perf_counter() - t0
-    counts["landmarks"] = chain_walk.launch_count
+    counts["landmarks"] = slicing.launch_count
     log(f"facade: Humerus first landmark in {first_s * 1e3:.1f} ms wall "
         f"(ingest {ingest_s * 1e3:.1f} ms, landmarks and csys "
         f"{(first_s - ingest_s) * 1e3:.1f} ms), "
-        f"{counts['landmarks']} walk launches ({smi})")
+        f"{counts['landmarks']} slice-stack launches ({smi})")
 
     canal = hum.canal.axis()
     d = (canal[0] - canal[1]) / np.linalg.norm(canal[0] - canal[1])
@@ -189,8 +321,8 @@ def facade_phase(td, path, dev, lm_np, smi):
     if "mesh3d" not in stt.Plot(hum).figure.to_html():
         raise AssertionError("plot has no mesh3d trace")
 
-    # the slice views: one walk launch each
-    before = chain_walk.launch_count
+    # the slice views: one slice-stack launch each
+    before = slicing.launch_count
     for name in ("full_slices", "proximal_slices", "distal_slices"):
         view = getattr(hum, name)
         xy, areas = view.ixy((0.1, 0.9)), view.areas1((0.1, 0.9))
@@ -198,17 +330,17 @@ def facade_phase(td, path, dev, lm_np, smi):
             f"{areas.min():.1f}..{areas.max():.1f} mm^2")
         if not (np.isfinite(xy).all() and (areas > 0).all()):
             raise AssertionError(f"{name}: non-finite contour or empty slice")
-    counts["views"] = chain_walk.launch_count - before
+    counts["views"] = slicing.launch_count - before
 
-    # a proximal-only bone, on the card and on the CPU (plain walk)
+    # a proximal-only bone, on the card and on the CPU (plain composition)
     v, f = synthetic_humerus(side="left", proximal_only=True,
                              rng_transform=np.random.default_rng(8))
     prox_path = os.path.join(td, "proximal.stl")
     stl.write_stl(prox_path, v, f)
-    before = chain_walk.launch_count
+    before = slicing.launch_count
     ph = stt.ProximalHumerus(prox_path, device=dev)
     card = (ph.side(), ph.neckshaft(), ph.radius_curvature())
-    counts["proximal"] = chain_walk.launch_count - before
+    counts["proximal"] = slicing.launch_count - before
     ph_cpu = stt.ProximalHumerus(prox_path, device="cpu")
     cpu = (ph_cpu.side(), ph_cpu.neckshaft(), ph_cpu.radius_curvature())
     log(f"ProximalHumerus: card {card}, cpu {cpu}")
@@ -217,30 +349,38 @@ def facade_phase(td, path, dev, lm_np, smi):
     if not (abs(card[1] - cpu[1]) < 0.75 and abs(card[2] - cpu[2]) < 0.75):
         raise AssertionError("ProximalHumerus card and cpu differ")
 
-    log(f"facade walk launches: {counts}")
-    for name, least in (("landmarks", 3), ("views", 3), ("proximal", 2)):
-        if counts[name] < least:
-            raise AssertionError(f"facade {name}: {counts[name]} walk "
-                                 f"launches, expected at least {least}")
+    counts["walk"] = chain_walk.launch_count
+    log(f"facade launches: {counts}")
+    for name, want in (("landmarks", 3), ("views", 3), ("proximal", 2),
+                       ("walk", 0)):
+        if counts[name] != want:
+            raise AssertionError(f"facade {name}: {counts[name]} launches, "
+                                 f"expected {want}")
     return counts
 
 
 def cohort_phase(paths, dev, lm_np, sides, smi):
     """Phase 7: process_cohort over the STLs, ingest included."""
     from shoulder_tpu_torch import cohort
-    from shoulder_tpu_torch.ops import chain_walk
+    from shoulder_tpu_torch.ops import chain_walk, slicing
 
     chain_walk.launch_count = 0
+    slicing.launch_count = 0
     t0 = time.perf_counter()
     res = cohort.process_cohort(paths, device=dev, batch_size=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = chain_walk.launch_count
+    launches = slicing.launch_count
     log(f"cohort: {len(res)} bones in {wall:.2f} s, "
         f"{len(res) / wall:.3f} bones/s with ingest, batch 4, "
-        f"{launches} walk launches ({smi})")
-    if len(res) != len(paths) or launches == 0:
-        raise AssertionError("cohort lost bones or never launched the walk")
+        f"{launches} slice-stack launches, {chain_walk.launch_count} walk "
+        f"launches ({smi})")
+    if len(res) != len(paths):
+        raise AssertionError("cohort lost bones")
+    if launches != 3 * len(paths) or chain_walk.launch_count != 0:
+        raise AssertionError(f"cohort: {launches} slice-stack and "
+                             f"{chain_walk.launch_count} walk launches, "
+                             f"expected {3 * len(paths)} and 0")
     for i, r in enumerate(res):
         got = (r["side"], r["neckshaft_deg"], r["retroversion_deg"],
                r["radius_curvature_mm"])
@@ -250,6 +390,147 @@ def cohort_phase(paths, dev, lm_np, sides, smi):
     summary = cohort.cohort_summary(res)
     log(f"cohort summary: {summary}")
     return launches
+
+
+def walk_phase(dev, bone0_stacks, smi):
+    """Phase 3: the standalone walk kernel against its plain version."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    k = min(DEFAULT_CONFIG.slice_compact_k, DEFAULT_CONFIG.proximal.band)
+    rng = np.random.default_rng(0)
+    cases = {"random": random_walk_rows(rng, k, 64),
+             "empty": (np.tile(np.arange(64, dtype=np.int32), (8, 1)),
+                       np.zeros((8, 64), np.int32))}
+    cases = {name: tuple(torch.as_tensor(a, device=dev) for a in c)
+             for name, c in cases.items()}
+    # the real rows: the plain compaction of bone 0's three stacks
+    for name, (args, _) in zip(STACKS, bone0_stacks):
+        sg, zs, _interp, band, kk = stack_args(args)
+        crossed, _s, _e, succ, *_ = slicing.compact_stack(sg, zs, band, kk)
+        cases[name] = (succ.to(torch.int32).contiguous(),
+                       crossed.to(torch.int32).contiguous())
+    max_err = 0
+    for name, (succ, crossed) in cases.items():
+        got = chain_walk.chain_walk_marked(succ, crossed)
+        torch.cuda.synchronize()
+        want = chain_walk.chain_walk_plain(succ, crossed)
+        err = walk_disagreement(got, want)
+        log(f"walk {name}: rows {succ.shape[0]} x {succ.shape[1]}, "
+            f"visits {int(want[1].sum())}, max disagreement {err}")
+        if err != 0:
+            raise AssertionError(f"walk kernel disagrees on {name}")
+        max_err = max(max_err, err)
+    if int(chain_walk.chain_walk_marked(*cases["empty"])[1].max()) != 0:
+        raise AssertionError("the empty slice visited faces")
+
+    # the proximal stack (600 x 384) of one bone, and 8 bones' rows folded
+    prox = cases["proximal"]
+    prox8 = tuple(x.repeat(BATCH, 1).contiguous() for x in prox)
+    visits = int(chain_walk.chain_walk_plain(*prox)[1].sum())
+    res = {
+        "ms": timed_cuda(lambda: chain_walk.chain_walk_marked(*prox), 50),
+        "plain_ms": timed_cuda(lambda: chain_walk.chain_walk_plain(*prox), 3),
+        "batch8_ms": timed_cuda(lambda: chain_walk.chain_walk_marked(*prox8),
+                                50),
+        "batch8_plain_ms": timed_cuda(
+            lambda: chain_walk.chain_walk_plain(*prox8), 3),
+    }
+    res["bound_ms"], res["bound_by"] = bound(*walk_work(prox[0], visits))
+    res["batch8_bound_ms"], _ = bound(*walk_work(prox8[0], BATCH * visits))
+    log(f"walk time, proximal stack {tuple(prox[0].shape)}: kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms, bound "
+        f"{res['bound_ms'] * 1e3:.3f} us ({smi})")
+    log(f"walk time, batch-8 rows {tuple(prox8[0].shape)}: kernel "
+        f"{res['batch8_ms']:.4f} ms, plain {res['batch8_plain_ms']:.2f} ms, "
+        f"bound {res['batch8_bound_ms'] * 1e3:.3f} us")
+    res["max_abs_err"] = max_err
+    return res
+
+
+def slice_kernel_phase(main_stacks, bone0_stacks, smi):
+    """Phase 5: the fused slice-stack kernel against the plain composition
+    on the card, and both timed per stack."""
+    from shoulder_tpu_torch.ops import slicing
+
+    plain = slicing.slice_stack_plain
+    worst = {"contour_mm": 0.0, "centroid_mm": 0.0, "area_mm2": 0.0,
+             "total_area_mm2": 0.0, "rows": 0, "loop_differs": 0}
+    cases = [(f"bone {i // 3} {STACKS[i % 3]}", stack_args(args), out)
+             for i, (args, out) in enumerate(main_stacks)]
+    sg0, _zs, interp0, band0, k0 = stack_args(bone0_stacks[1][0])
+    edge = edge_planes(sg0)
+    cases.append(("bone 0 edge planes", (sg0, edge, interp0, band0, k0),
+                  None))
+    sgf, zsf, interpf, bandf, _k = stack_args(bone0_stacks[0][0])
+    cases.append(("bone 0 full, k 64", (sgf, zsf, interpf, bandf, 64), None))
+    for name, args, got in cases:
+        if got is None:
+            got = slicing.slice_stack_kernel(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        d = stack_disagreement(got, want)
+        ok = (d["contour_mm"] <= TOL_MM and d["centroid_mm"] <= TOL_MM
+              and d["area_mm2"] <= TOL_MM2 and d["total_area_mm2"] <= TOL_MM2)
+        log(f"slice-stack {name}: {d}")
+        if not ok:
+            raise AssertionError(f"slice-stack kernel disagrees on {name}")
+        for key in worst:
+            worst[key] = (worst[key] + d[key] if key in ("rows",
+                                                         "loop_differs")
+                          else max(worst[key], d[key]))
+    if d["overflow_rows"] == 0:
+        raise AssertionError("k = 64 did not overflow")
+    log(f"slice-stack kernel vs plain, all {len(cases)} calls: {worst}")
+
+    per_stack = {}
+    for name, (args, _) in zip(STACKS, bone0_stacks):
+        a = stack_args(args)
+        res = {"planes": int(a[1].shape[0]), "interp": a[2], "band": a[3],
+               "k": a[4]}
+        res["ms"] = timed_cuda(lambda: slicing.slice_stack_kernel(*a), 50)
+        res["plain_ms"] = timed_cuda(lambda: plain(*a), 3)
+        t0 = time.perf_counter()
+        plain(*a)
+        torch.cuda.synchronize()
+        res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        n_bytes, n_ops = slice_stack_work(*a)
+        res["bytes"], res["ops"] = n_bytes, n_ops
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, n_ops)
+        per_stack[name] = res
+        log(f"slice-stack time, {name} stack {res['planes']} x "
+            f"{res['interp']} (band {res['band']}, k {res['k']}): kernel "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms (host wall "
+            f"{res['plain_wall_ms']:.2f} ms), bound "
+            f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} "
+            f"({n_bytes} B) ({smi})")
+        res.update(stage_breakdown(a))
+        log(f"slice-stack stages, {name} stack, timed build "
+            f"{res['timed_ms']:.4f} ms, SM clock {res['sm_ghz']:.3f} GHz, "
+            f"block {res['block_us_median']:.2f} us (median); per stage, "
+            f"us median / mean: " + ", ".join(
+                f"{s} {res['stage_us_median'][s]:.2f} / "
+                f"{res['stage_us_mean'][s]:.2f}" for s in res['stage_us_median']))
+    return worst, per_stack
+
+
+def stage_breakdown(args):
+    """Each stage's time inside a block, from the kernel's timed build
+    (clock64 at every stage boundary, converted by the blocks' own
+    %globaltimer), and the timed build's ms, which against the kernel's
+    shows what the stamps cost."""
+    from shoulder_tpu_torch.ops import slicing
+
+    stamps = torch.zeros((args[1].shape[0], 12), dtype=torch.int64,
+                         device=args[1].device)
+    timed_ms = timed_cuda(
+        lambda: slicing.slice_stack_kernel(*args, stamps=stamps), 50)
+    us, ghz = slicing.stage_times(stamps)
+    return {"timed_ms": timed_ms, "sm_ghz": ghz,
+            "block_us_median": float(us.sum(1).median()),
+            "stage_us_median": dict(zip(slicing.STAGES,
+                                        us.median(0).values.tolist())),
+            "stage_us_mean": dict(zip(slicing.STAGES, us.mean(0).tolist()))}
 
 
 def main(td):
@@ -269,14 +550,23 @@ def main(td):
     from shoulder_tpu_torch.io import ingest, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
     from shoulder_tpu_torch.models import forest, unet
-    from shoulder_tpu_torch.ops import chain_walk, slicing
+    from shoulder_tpu_torch.ops import chain_walk, kernels, slicing
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import landmarks as L
 
     # ---- build
     t0 = time.perf_counter()
-    so = chain_walk.build()
+    so = kernels.build()
     log(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
+    for line in kernels.build_log().splitlines():
+        if "ptxas info" in line or "spill" in line:
+            log(f"  {line.strip()}")
+    lib = kernels.library()
+    for name in STACKS:
+        band = getattr(DEFAULT_CONFIG, name).band
+        log(f"slice-stack shared memory, {name} stack: "
+            f"{lib.slice_stack_smem_bytes(band, min(band, DEFAULT_CONFIG.slice_compact_k))}"
+            f" B dynamic per block")
 
     # ---- ingest (host) and models
     sides = ["left", "right"] * (BATCH // 2)
@@ -293,64 +583,35 @@ def main(td):
     seg = unet.load_model(dev)
     bones = B.stack_bones(specs, dev)
 
-    # ---- kernel vs plain: record the real walk rows of one bone's stacks
-    kernel_walk = chain_walk.chain_walk_marked
-    with recording(chain_walk, "chain_walk_marked", []) as walks, \
-            recording(slicing, "slice_stack", []) as card_stacks:
-        L.compute_landmarks(B.bone_tensors(specs[0], dev), rf,
-                            seg_model=seg)
-    if len(walks) != 3:
-        raise AssertionError(f"expected 3 stack walks, saw {len(walks)}")
-    recorded = [args for args, _ in walks]
-
-    k = min(DEFAULT_CONFIG.slice_compact_k, DEFAULT_CONFIG.proximal.band)
-    rng = np.random.default_rng(0)
-    cases = {"random": random_walk_rows(rng, k, 64),
-             "empty": (np.tile(np.arange(64, dtype=np.int32), (8, 1)),
-                       np.zeros((8, 64), np.int32))}
-    cases = {name: tuple(torch.as_tensor(a, device=dev) for a in c)
-             for name, c in cases.items()}
-    for name, (succ, crossed) in zip(("full", "proximal", "distal"), recorded):
-        cases[name] = (succ, crossed)
-    max_err = 0
-    for name, (succ, crossed) in cases.items():
-        got = kernel_walk(succ, crossed)
-        torch.cuda.synchronize()
-        want = chain_walk.chain_walk_plain(succ, crossed)
-        err = walk_disagreement(got, want)
-        log(f"walk {name}: rows {succ.shape[0]} x {succ.shape[1]}, "
-            f"visits {int(want[1].sum())}, max disagreement {err}")
-        if err != 0:
-            raise AssertionError(f"walk kernel disagrees on {name}")
-        max_err = max(max_err, err)
-    if int(kernel_walk(*cases["empty"])[1].max()) != 0:
-        raise AssertionError("the empty slice visited faces")
-
-    # main-path shapes: the proximal stack (600 x 384) for one bone and
-    # for a batch of 8 bones folded into rows
-    prox = cases["proximal"]
-    prox8 = tuple(x.repeat(BATCH, 1).contiguous() for x in prox)
-    kernel_ms = timed_cuda(lambda: kernel_walk(*prox), 50)
-    plain_ms = timed_cuda(lambda: chain_walk.chain_walk_plain(*prox), 3)
-    kernel8_ms = timed_cuda(lambda: kernel_walk(*prox8), 50)
-    plain8_ms = timed_cuda(lambda: chain_walk.chain_walk_plain(*prox8), 3)
-    log(f"walk time, proximal stack {tuple(prox[0].shape)}: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.2f} ms")
-    log(f"walk time, batch-8 rows {tuple(prox8[0].shape)}: kernel "
-        f"{kernel8_ms:.4f} ms, plain {plain8_ms:.2f} ms")
-
-    # ---- pipeline on the card, through the kernel
-    chain_walk.launch_count = 0
-    t0 = time.perf_counter()
-    lm = B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
-                                   seg_model=seg)
+    # ---- bone 0's three stacks (they give phase 3 its real rows)
+    with recording(slicing, "slice_stack", []) as bone0_stacks:
+        L.compute_landmarks(B.bone_tensors(specs[0], dev), rf, seg_model=seg)
     torch.cuda.synchronize()
+    if len(bone0_stacks) != 3:
+        raise AssertionError(f"expected 3 stacks, saw {len(bone0_stacks)}")
+    walk = walk_phase(dev, bone0_stacks, smi)
+
+    # ---- pipeline on the card: the main path, counted
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    t0 = time.perf_counter()
+    with recording(slicing, "slice_stack", []) as main_stacks, \
+            recording(slicing, "_compact_slice", []) as compactions:
+        lm = B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
+                                       seg_model=seg)
+        torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = chain_walk.launch_count
+    launches = slicing.launch_count
+    walk_launches = chain_walk.launch_count
     log(f"pipeline: first batch of {BATCH} in {first_s:.2f} s, "
-        f"{launches} walk launches")
-    if launches == 0:
-        raise AssertionError("the main path never launched the walk kernel")
+        f"{launches} slice-stack launches, {walk_launches} walk launches, "
+        f"{len(compactions)} plain compactions (surgical-neck planes)")
+    if launches != 3 * BATCH or len(main_stacks) != 3 * BATCH:
+        raise AssertionError(f"the main path made {launches} slice-stack "
+                             f"launches, expected {3 * BATCH}")
+    if walk_launches != 0 or len(compactions) != BATCH:
+        raise AssertionError("the main path ran the standalone walk or the "
+                             "plain compaction inside slice_stack")
 
     lm_np = L.Landmarks(*(x.cpu().numpy() for x in lm))
     for name, arr in lm_np._asdict().items():
@@ -374,17 +635,16 @@ def main(td):
         if not ok:
             raise AssertionError(f"bone {i} failed the anatomy gate")
 
-    # one bone on the CPU (plain walk) against the card
+    # one bone on the CPU (plain composition) against the card
     t0 = time.perf_counter()
     with recording(slicing, "slice_stack", []) as cpu_stacks:
         cpu = L.compute_landmarks(B.bone_tensors(specs[0], "cpu"),
                                   forest.load_params("cpu"),
                                   seg_model=unet.load_model("cpu"))
-    # float sums run in another order on the card (parallel cumsum,
-    # atomics), so contours differ by ulps; a largest-loop flip on a
-    # near-tie would show as a slice whose area jumps.  Reported, not gated.
-    for name, (_, g), (_, c) in zip(("full", "proximal", "distal"),
-                                    card_stacks, cpu_stacks):
+    # the card's sums run in another order, so contours differ by ulps; a
+    # largest-loop flip on a near-tie would show as a slice whose area
+    # jumps.  Reported, not gated.
+    for name, (_, g), (_, c) in zip(STACKS, bone0_stacks, cpu_stacks):
         g = slicing.SliceStack(*(x.cpu() for x in g))
         dz = float((g.zs - c.zs).abs().max())
         dc = float((g.contours - c.contours).abs().max())
@@ -403,6 +663,10 @@ def main(td):
         if not diff < 0.75:
             raise AssertionError(f"cpu and card differ by {diff} in {name}")
 
+    # ---- the fused kernel against the plain composition
+    worst, per_stack = slice_kernel_phase(main_stacks, bone0_stacks, smi)
+    del main_stacks
+
     # ---- timing
     lat = []
     for _ in range(REPS):
@@ -416,21 +680,44 @@ def main(td):
     log(f"throughput: {BATCH / p50:.3f} bones/s, p50 {p50 * 1e3:.1f} "
         f"ms/batch of {BATCH} ({smi})")
 
-    facade_launches = facade_phase(td, paths[0], dev, lm_np, smi)
+    facade = facade_phase(td, paths[0], dev, lm_np, smi)
     cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
 
+    prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{
+        "name": "slice_stack",
+        "route": "cuda",
+        "source": "shoulder_tpu_torch/csrc/slice_stack.cu",
+        "replaces": "shoulder_tpu/ops/pallas_chain.py:52",
+        "launches": launches,
+        "launches_per_phase": {"pipeline": launches,
+                               "facade": facade,
+                               "cohort": cohort_launches},
+        "max_abs_err": max(worst["contour_mm"], worst["centroid_mm"]),
+        "max_area_err_mm2": max(worst["area_mm2"], worst["total_area_mm2"]),
+        "rows_compared": worst["rows"],
+        "rows_best_loop_differs": worst["loop_differs"],
+        "ms": prox["ms"],
+        "plain_ms": prox["plain_ms"],
+        "bound_ms": prox["bound_ms"],
+        "bound_by": prox["bound_by"],
+        "library_ms": None,
+        "per_stack": per_stack,
+    }, {
         "name": "chain_walk",
         "route": "cuda",
         "source": "shoulder_tpu_torch/csrc/chain_walk.cu",
         "replaces": "shoulder_tpu/ops/pallas_chain.py:52",
-        "launches": launches,
-        "launches_per_phase": {"pipeline": launches,
-                               "facade": facade_launches,
-                               "cohort": cohort_launches},
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "launches": walk_launches,
+        "max_abs_err": walk["max_abs_err"],
+        "ms": walk["ms"],
+        "plain_ms": walk["plain_ms"],
+        "bound_ms": walk["bound_ms"],
+        "bound_by": walk["bound_by"],
+        "library_ms": None,
+        "batch8_ms": walk["batch8_ms"],
+        "batch8_plain_ms": walk["batch8_plain_ms"],
+        "batch8_bound_ms": walk["batch8_bound_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

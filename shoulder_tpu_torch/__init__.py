@@ -5,7 +5,9 @@ anatomic landmarks and clinical metrics out), written in PyTorch for one
 NVIDIA H100.  Module names mirror the JAX package so each module's
 counterpart is easy to find.  The one Pallas TPU kernel of the main path,
 the contour-chain walk, is a hand-written CUDA kernel here
-(csrc/chain_walk.cu, ops/chain_walk.py).
+(csrc/chain_walk.cu, ops/chain_walk.py), and on the main path it runs
+inside the fused slice-stack kernel (csrc/slice_stack.cu, one launch per
+slice stack, ops/slicing.py).
 
 The public API is the JAX package's: `Humerus`, `ProximalHumerus`,
 `HumeralHeadOsteotomy`, `Plot` (imported lazily) and

@@ -27,11 +27,18 @@
 // per block, so a 600-row stack spreads over all 132 SMs and each SM
 // overlaps the latency chains of its resident warps.  The warp stages the
 // row in shared memory and writes it back with coalesced loads and stores;
-// lane 0 walks.  The kernel is integer-only, so FMA contraction and float
-// summation order do not touch it.
+// lane 0 walks (walk.cuh, the same walk the fused slice-stack kernel runs).
+// The kernel is integer-only, so FMA contraction and float summation order
+// do not touch it.
+//
+// The main path no longer launches this kernel: slice_stack.cu walks each
+// plane inside its own block.  It stays as the walk's standalone entry
+// point, held exactly against its plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "walk.cuh"
 
 namespace {
 
@@ -66,22 +73,7 @@ chain_walk_kernel(const int32_t* __restrict__ succ,
   const int nc = __reduce_add_sync(0xffffffffu, count);
   __syncwarp();
 
-  if (lane == 0) {
-    int pos = 0;
-    for (int h = 0; h < nc; ++h) {
-      if (work[h] < 0) continue;  // visited by an earlier loop
-      int cur = h;
-      int mark = k;               // the head entry of a loop
-      while (cur >= 0) {
-        const int nxt = work[cur];
-        work[cur] = -1;
-        walk[pos++] = cur + mark;
-        mark = 0;
-        cur = (nxt < 0 || nxt >= k || work[nxt] < 0) ? -1 : nxt;
-      }
-    }
-    n_out[row] = pos;
-  }
+  if (lane == 0) n_out[row] = walk_loops(work, walk, nc, k);
   __syncwarp();
 
   for (int j = lane; j < k; j += kWarp) {

@@ -4,8 +4,9 @@
   ("params/ConvBlock_0/Conv_0/kernel", as tools/export_unet_npz.py writes
   it), into a `state_dict` of models/unet.UNet.  Conv kernels go from
   Flax's HWIO to torch's OIHW; GroupNorm scale/bias become weight/bias.
-* `forest_tensors`: the forest npz (shoulder_tpu/models/params/
-  rfc_bg3.npz) into the tensors of models/forest.ForestParams.
+* `forest_tensors`: the forest npz (shoulder_tpu_torch/models/params/
+  rfc_bg3.npz, the port's copy of the JAX package's) into the tensors of
+  models/forest.ForestParams.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Vectorized random-forest inference (PyTorch, fixed depth).
 
-Port of shoulder_tpu/models/forest.py.  The forest is the JAX package's
-own parameter file, shoulder_tpu/models/params/rfc_bg3.npz, read by
-filesystem path (importing shoulder_tpu would import jax).  Evaluation
+Port of shoulder_tpu/models/forest.py.  The forest is the port's own
+copy of the JAX package's parameter file,
+shoulder_tpu_torch/models/params/rfc_bg3.npz (the same arrays as
+shoulder_tpu/models/params/rfc_bg3.npz).  Evaluation
 walks all trees for all samples in lockstep; each round advances `levels`
 tree levels off one row gather of a per-node subtree table.
 """
@@ -18,8 +19,7 @@ import torch
 
 from shoulder_tpu_torch.models import convert
 
-DEFAULT_NPZ = (Path(__file__).resolve().parents[2] / "shoulder_tpu" / "models"
-               / "params" / "rfc_bg3.npz")
+DEFAULT_NPZ = Path(__file__).resolve().parent / "params" / "rfc_bg3.npz"
 
 
 @dataclasses.dataclass

@@ -2,9 +2,11 @@
 
 The counterpart of shoulder_tpu/ops/pallas_chain.py (the Pallas TPU
 kernel `_walk_kernel` behind `chain_walk_marked`).  The kernel is
-csrc/chain_walk.cu, compiled with nvcc for sm_90a at first use into
-shoulder_tpu_torch/_build/ (keyed by a hash of the source, so an edit
-rebuilds it) and bound through ctypes.
+csrc/chain_walk.cu around the walk of csrc/walk.cuh, part of the port's
+one kernel library (ops/kernels.py: nvcc for sm_90a at first use, bound
+through ctypes).  The main path's slice stacks walk inside the fused
+slice-stack kernel (csrc/slice_stack.cu), which runs the same walk.cuh;
+this entry point is the walk on its own.
 
 Contract, for (R, K) int32 `succ` and `crossed` (crossed faces packed at
 the front of each row): walk every contour loop of every row in successor
@@ -20,65 +22,11 @@ to the other.  `launch_count` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
-
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "chain_walk.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from shoulder_tpu_torch.ops import kernels
 
 launch_count = 0  # kernel launches since the caller last reset it
-_lib = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def build() -> Path:
-    """Compile csrc/chain_walk.cu into the build directory (once per source
-    hash) and return the shared library's path."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"chain_walk_{tag}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {SOURCE.name} (rc {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
-    return so
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.chain_walk_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.chain_walk_launch.restype = ctypes.c_int
-        lib.chain_walk_max_k.argtypes = []
-        lib.chain_walk_max_k.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def chain_walk_marked(succ: torch.Tensor, crossed: torch.Tensor):
@@ -100,7 +48,7 @@ def chain_walk_marked(succ: torch.Tensor, crossed: torch.Tensor):
     if not (succ.is_contiguous() and crossed.is_contiguous()):
         raise ValueError("succ and crossed must be contiguous")
     rows, k = succ.shape
-    lib = _library()
+    lib = kernels.library()
     if k > lib.chain_walk_max_k():
         raise ValueError(f"row width {k} exceeds the kernel's "
                          f"{lib.chain_walk_max_k()}")

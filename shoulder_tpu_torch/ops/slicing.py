@@ -8,12 +8,18 @@ pipeline runs:
   3. per-plane compaction of the crossed faces and their oriented
      intersection segments (`_compact_slice`),
   4. the contour-chain walk over the compacted successor map
-     (ops/chain_walk.py: a CUDA kernel on the card),
+     (ops/chain_walk.py's plain walk),
   5. largest-loop selection and arc-length resampling (`_post_walk`,
      `_resample`),
 
 plus the single-plane raw loop of the surgical neck (`slice_raw_banded`,
 pointer doubling, as in the JAX package on every backend).
+
+`slice_stack` runs steps 2-5 for a whole stack.  On the card it is one
+launch of the fused kernel csrc/slice_stack.cu (`slice_stack_kernel`, one
+block per plane, everything between the steps in shared memory); on the
+CPU it is their plain PyTorch composition (`slice_stack_plain`), which is
+the kernel's plain version.
 
 JAX's per-slice `vmap` is an explicit leading slice dimension (S, ...)
 here.  Orientation is combinatorial (the sign pattern of the vertex
@@ -29,10 +35,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from shoulder_tpu_torch.ops import chain_walk
+from shoulder_tpu_torch.ops import chain_walk, kernels
 from shoulder_tpu_torch.ops import signal
 
 _BIG = torch.iinfo(torch.int32).max
+# the slice-stack kernel's limits: its block takes 64 k + 2 band + 20 bytes
+# of shared memory (csrc/slice_stack.cu), 160 KB here, under the card's
+# 227 KB per block
+KERNEL_MAX_K = 2048
+KERNEL_MAX_BAND = 16384
+STAGES = ("window", "compaction", "segments", "injectivity", "walk",
+          "moments", "roll", "knots", "resample")  # timed kernel's stages
+
+launch_count = 0  # slice-stack kernel launches since the caller reset it
 
 
 class SliceStack(NamedTuple):
@@ -280,12 +295,21 @@ def slice_stack(sg: SortedGeom, zs, interp_num: int, band: int,
                 compact_k: int = 512, chunk: int = 150) -> SliceStack:
     """Cross-section contour stack of all planes `zs` of one mesh.
 
-    Compaction runs `chunk` planes at a time (it bounds the (chunk, band)
-    and (chunk, k, 9) intermediates); the walk is one launch over all
-    planes of the stack.
+    CPU tensors take the plain composition (`slice_stack_plain`); CUDA
+    tensors launch the fused kernel once for the stack, or raise.
+    `chunk` bounds the plain version's intermediates; the kernel has none.
     """
     band = min(band, sg.z_key.shape[0])
     k = min(compact_k, band)
+    if zs.device.type == "cpu":
+        return slice_stack_plain(sg, zs, interp_num, band, k, chunk)
+    return slice_stack_kernel(sg, zs.contiguous(), interp_num, band, k)
+
+
+def compact_stack(sg: SortedGeom, zs, band: int, k: int, chunk: int = 150):
+    """`_compact_slice` over all planes, `chunk` planes at a time (it
+    bounds the (chunk, band) and (chunk, k, 9) intermediates).  Returns
+    its outputs for the stack, with `over` including window overflow."""
     los, _starts, win_over = _window_starts(sg, zs, band)
     win = torch.arange(band, device=zs.device)
     parts = []
@@ -296,14 +320,119 @@ def slice_stack(sg: SortedGeom, zs, interp_num: int, band: int,
     crossed, start, end, succ, orig, over, open_edges = (
         torch.cat(x, dim=0) for x in zip(*parts)
     )
-    order, n, is_start = chain_walk.chain_walk_marked(
+    return crossed, start, end, succ, orig, win_over | over, open_edges
+
+
+def slice_stack_plain(sg: SortedGeom, zs, interp_num: int, band: int,
+                      k: int, chunk: int = 150) -> SliceStack:
+    """The plain composition behind `slice_stack` (band and k already
+    clamped): compaction, one plain walk over all planes of the stack,
+    loop finish."""
+    crossed, start, end, succ, orig, overflow, open_edges = compact_stack(
+        sg, zs, band, k, chunk)
+    order, n, is_start = chain_walk.chain_walk_plain(
         succ.to(torch.int32).contiguous(), crossed.to(torch.int32).contiguous()
     )
     contours, centroids, areas, total_areas = _post_walk(
         order, is_start, n, start, end, orig, interp_num
     )
     return SliceStack(contours, centroids, areas, total_areas, zs,
-                      win_over | over, open_edges)
+                      overflow, open_edges)
+
+
+def check_kernel_args(sg: SortedGeom, zs, interp_num: int, band: int,
+                      k: int) -> None:
+    """Raise unless the slice-stack kernel takes these arguments: dtypes,
+    shapes, contiguity, alignment, one device, and band / k / interp_num
+    within the kernel's limits.  Reads metadata only."""
+    if zs.dim() != 1:
+        raise ValueError(f"zs must be 1-D, not {tuple(zs.shape)}")
+    n_faces = sg.z_key.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    want = {"fvt": (sg.fvt, f32, (n_faces, 9)),
+            "ids": (sg.ids, i32, (n_faces, 4)),
+            "z_mm": (sg.z_mm, f32, (n_faces, 2)),
+            "z_key": (sg.z_key, f32, (n_faces,)),
+            "cummax_z_max": (sg.cummax_z_max, f32, (n_faces,)),
+            "zs": (zs, f32, tuple(zs.shape))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the kernel "
+                             f"takes {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != zs.device:
+            raise ValueError(f"{name} is on {t.device}, zs on {zs.device}")
+    if sg.ids.data_ptr() % 16 or sg.z_mm.data_ptr() % 8:
+        raise ValueError("ids must be 16-byte and z_mm 8-byte aligned")
+    if not 1 <= k <= min(band, KERNEL_MAX_K):
+        raise ValueError(f"k {k} outside the kernel's [1, min(band {band}, "
+                         f"{KERNEL_MAX_K})]")
+    if not band <= min(n_faces, KERNEL_MAX_BAND):
+        raise ValueError(f"band {band} above min(faces {n_faces}, "
+                         f"{KERNEL_MAX_BAND})")
+    if interp_num < 2:
+        raise ValueError(f"interp_num {interp_num} below 2")
+
+
+def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
+                       k: int, stamps=None) -> SliceStack:
+    """One launch of csrc/slice_stack.cu over all planes `zs` (CUDA
+    tensors; band and k already clamped).  Raises on arguments the kernel
+    does not take, on a failed build and on a refused launch.
+
+    With `stamps`, an (S, 12) int64 tensor, it launches the kernel's timed
+    build, which writes each block's stage clocks there (`stage_times`)."""
+    check_kernel_args(sg, zs, interp_num, band, k)
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.shape != (zs.shape[0], 12)
+                               or not stamps.is_contiguous()
+                               or stamps.device != zs.device):
+        raise ValueError("stamps must be a contiguous (S, 12) int64 tensor "
+                         "beside zs")
+    if zs.device.type != "cuda":
+        raise ValueError(f"the slice-stack kernel runs on CUDA tensors, not "
+                         f"{zs.device}")
+    lib = kernels.library()
+    n_planes, dev = zs.shape[0], zs.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    contours = torch.empty((n_planes, interp_num, 2), **f32)
+    centroids = torch.empty((n_planes, 2), **f32)
+    areas = torch.empty((n_planes,), **f32)
+    total_areas = torch.empty((n_planes,), **f32)
+    overflow = torch.empty((n_planes,), dtype=torch.bool, device=dev)
+    open_edges = torch.empty((n_planes,), dtype=torch.bool, device=dev)
+    outs = [contours.data_ptr(), centroids.data_ptr(), areas.data_ptr(),
+            total_areas.data_ptr(), overflow.data_ptr(),
+            open_edges.data_ptr()]
+    launcher = lib.slice_stack_launch
+    if stamps is not None:
+        launcher = lib.slice_stack_launch_timed
+        outs.append(stamps.data_ptr())
+    rc = launcher(
+        sg.fvt.data_ptr(), sg.ids.data_ptr(), sg.z_mm.data_ptr(),
+        sg.z_key.data_ptr(), sg.cummax_z_max.data_ptr(), zs.data_ptr(),
+        *outs, sg.z_key.shape[0], n_planes, band, k, interp_num,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"slice_stack kernel launch failed: CUDA error {rc}")
+    global launch_count
+    if n_planes:  # no planes, no launch
+        launch_count += 1
+    return SliceStack(contours, centroids, areas, total_areas, zs, overflow,
+                      open_edges)
+
+
+def stage_times(stamps):
+    """(us, ghz) from a timed launch's stamps: each block's time in each
+    of `STAGES` (S, 9) in microseconds, and the SM clock in GHz, taken as
+    the blocks' cycles over their %globaltimer nanoseconds."""
+    s = stamps.cpu().double()
+    ghz = float((s[:, 9] - s[:, 0]).sum() / (s[:, 11] - s[:, 10]).sum())
+    return (s[:, 1:10] - s[:, 0:9]) / (ghz * 1e3), ghz
 
 
 def compact_points(points, mask, out_n: int):

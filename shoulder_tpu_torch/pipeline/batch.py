@@ -3,8 +3,8 @@
 Port of the batch entry points of shoulder_tpu/pipeline/batch.py: build
 BoneTensors from ingested BoneSpecs on an explicit device, stack them
 into a batch, and run the landmark pipeline over the batch.  The batch
-runs bone by bone here; each of a bone's three slice stacks is one walk
-launch over its planes.
+runs bone by bone here; each of a bone's three slice stacks is one
+slice-stack kernel launch over its planes.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Port of shoulder_tpu/slices.py.  A SliceSet is one family of cross
 sections of a bone in the OBB frame, computed on first access by one
 `ops.slicing.slice_stack` on the bone's device (on the card: one launch
-of the walk kernel) and read back to numpy float64.  The accessors take a
+of the slice-stack kernel) and read back to numpy float64.  The accessors take a
 fractional cutoff window and keep the JAX package's array layout
 ((S, 2, N): row 0 = x|theta, row 1 = y|r) and both of its quirks: `itr`
 returns cartesian data, and `itr_start_even_theta` returns `itr_start`.

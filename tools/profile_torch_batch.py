@@ -7,6 +7,13 @@ busy and idle share over it, host time and kernel time per stage, the
 top kernels by device time, and the host's launches and waits; with
 --trace, writes the Chrome trace (tens of MB).
 
+The profiler traces the kernels of ops/kernels.py's library on the card
+but neither counts their launches as cudaLaunchKernel nor ties them to
+their host range (PyTorch 2.11 on an H100; linking the library against
+the shared CUDA runtime did not change that).  So the launch count adds
+the wrappers' own counts, and the wrappers' ranges take their kernels'
+device time by name.
+
 Run (on a machine with a card):
   python3 tools/profile_torch_batch.py [--batch 8] [--trace PATH]
 """
@@ -26,10 +33,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-STAGES = ("_compact_slice", "_post_walk", "chain_walk_marked", "sorted_geom",
-          "_surgical_neck", "_canal", "_groove", "_anp_image_points",
-          "segment_image", "sphere_segment", "_anp_from_mask",
-          "_transepicondylar", "_metrics")
+STAGES = ("slice_stack_kernel", "_compact_slice", "_post_walk",
+          "chain_walk_marked", "sorted_geom", "_surgical_neck", "_canal",
+          "_groove", "_anp_image_points", "segment_image", "sphere_segment",
+          "_anp_from_mask", "_transepicondylar", "_metrics")
 
 
 def _ranged(name, fn):
@@ -46,8 +53,9 @@ def _instrument():
     from shoulder_tpu_torch.ops import chain_walk, slicing
     from shoulder_tpu_torch.pipeline import landmarks as L
 
-    owner = {"_compact_slice": slicing, "_post_walk": slicing,
-             "sorted_geom": slicing, "chain_walk_marked": chain_walk,
+    owner = {"slice_stack_kernel": slicing, "_compact_slice": slicing,
+             "_post_walk": slicing, "sorted_geom": slicing,
+             "chain_walk_marked": chain_walk,
              "segment_image": unet, "sphere_segment": segment}
     for name in STAGES:
         mod = owner.get(name, L)
@@ -114,25 +122,39 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     print("unprofiled batch ms:", ", ".join(f"{w:.1f}" for w in walls))
 
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    def port_launches():
+        return slicing.launch_count + chain_walk.launch_count
+
+    port0 = port_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
+    port = port_launches() - port0
     busy = _busy_ms(prof)
     print(f"profiled batch of {args.batch}: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
 
     avgs = prof.key_averages()
-    print("\nstage ranges (per batch): calls, host ms, kernel ms")
-    for e in sorted((e for e in avgs if e.key in STAGES
-                     and e.cpu_time_total > 0),
-                    key=lambda e: -e.cpu_time_total):
-        print(f"  {e.key:22s} {e.count:5d} {e.cpu_time_total / 1e3:9.1f} "
-              f"{e.device_time_total / 1e3:9.1f}")
     kernels = sorted((e for e in avgs
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and e.key not in STAGES),
                      key=lambda e: -e.self_device_time_total)
+    # the library's kernels are not tied to their host range (docstring):
+    # their device time is taken by kernel name
+    by_name = {stage: sum(e.self_device_time_total for e in kernels
+                          if f"::{kernel}" in e.key)
+               for stage, kernel in (("slice_stack_kernel", "slice_stack_kernel"),
+                                     ("chain_walk_marked", "chain_walk_kernel"))}
+    print("\nstage ranges (per batch): calls, host ms, kernel ms")
+    for e in sorted((e for e in avgs if e.key in STAGES
+                     and e.cpu_time_total > 0),
+                    key=lambda e: -e.cpu_time_total):
+        dev_us = by_name.get(e.key, e.device_time_total)
+        print(f"  {e.key:22s} {e.count:5d} {e.cpu_time_total / 1e3:9.1f} "
+              f"{dev_us / 1e3:9.1f}")
     total_launch = sum(e.count for e in kernels)
     print(f"\ndevice ops: {total_launch} launches, "
           f"{sum(e.self_device_time_total for e in kernels) / 1e3:.1f} ms; "
@@ -140,10 +162,19 @@ def main():
     for e in kernels[:15]:
         print(f"  {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d}x  "
               f"{e.key[:90]}")
+    print("the port's own kernels (csrc/), as the trace names them:")
+    for e in kernels:
+        if "slice_stack_kernel" in e.key or "chain_walk_kernel" in e.key:
+            print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  "
+                  f"{e.key[:90]}")
     syncs = {e.key: e.count for e in avgs if e.key in (
         "aten::_local_scalar_dense", "aten::nonzero", "cudaStreamSynchronize",
         "cudaMemcpyAsync", "cudaLaunchKernel")}
     print(f"\nhost waits and launches: {syncs}")
+    n_launch = syncs.get("cudaLaunchKernel", 0)
+    print(f"kernel launches per bone: {(n_launch + port) / args.batch:.1f} "
+          f"({n_launch} cudaLaunchKernel and {port} launches of the port's "
+          f"library per batch)")
     print("top 10 host ops by self CPU time")
     for e in sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  {e.self_cpu_time_total / 1e3:8.2f} ms {e.count:6d}x  "
