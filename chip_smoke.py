@@ -39,6 +39,21 @@ Phases (any failure raises, so the exit code is non-zero):
   8. cohort: process_cohort over the 8 STLs in batches of 4 (two batches,
      one prefetch); each bone equal to phase 4 within 0.05 deg / 0.05 mm;
      24 slice-stack launches, no walk launch.
+  9. CT: four 1.0 mm CT volumes (320 x 144 x 144, 2 left and 2 right)
+     from pipeline.ct.synth_ct_volume through the 3D UNet, marching tets
+     and the weld on the card and host, then one compute_landmarks_batch
+     of 4 at DEFAULT_CONFIG's widths with the CT mesh sizes (k 1024, band
+     6144, max_chain 1024); every mesh watertight, no slice overflow, the
+     UNet's mask against the HU threshold at IoU >= 0.85, each bone within
+     3.5 deg / 4.5 deg / 1.5 mm / 1.5 mm (neck-shaft, retroversion,
+     radius, neck_z) of the direct mesh of the same generator bone
+     (CT_GATES), exactly 12
+     slice-stack launches and no walk launch; the card's marching tets
+     against the CPU's on one threshold surface (equal count and weld,
+     1e-4 mm), the card's UNet against the CPU's (mask agreement >=
+     99.9 %), and all 12 stacks against the plain composition with
+     phase 5's tolerances; per-volume times with the UNet's and marching
+     tets' bounds, and the kernel's times at the CT sizes.
 
 The bone STLs live in one temporary directory for the whole run.
 
@@ -49,6 +64,7 @@ the card's name and power limit as nvidia-smi gives them, and
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,16 +78,45 @@ BATCH = 8
 REPS = 5
 TRUTH = dict(neck_shaft_deg=135.0, retroversion_deg=25.0, head_radius=24.0)
 STACKS = ("full", "proximal", "distal")
-# one H100 SXM (NVIDIA's data sheet): HBM rate and float32 rate outside the
-# tensor cores, at the full 700 W
+# one H100 SXM (NVIDIA's data sheet): HBM rate, float32 rate outside the
+# tensor cores and dense bf16 tensor-core rate, at the full 700 W
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # the tolerances of tests/test_slice_kernel.py:179-186
 TOL_MM, TOL_MM2 = 1e-3, 0.01
+# phase 9: tools/eval_ct_pitch.py's field of view at 1.0 mm, its bone
+# (tests/test_ct_path.py's) in four poses, its padded sizes
+CT_PITCH = 1.0
+CT_SHAPE = (320, 144, 144)
+CT_BONE_KW = dict(head_radius=26.0, shaft_radius=10.0, metaphysis_scale=0.6,
+                  groove_depth=4.5, groove_width_deg=20.0)
+CT_POSES = (("left", 20.0, 130.0), ("right", 30.0, 140.0),
+            ("left", 30.0, 140.0), ("right", 20.0, 130.0))
+CT_MAX_TRIS = 400000
+CT_IOU = 0.85
+# CT bone vs the direct mesh: neck-shaft, retroversion, radius, neck_z
+# (tests/test_ct_path.py:112-125).  Neck-shaft is 3.5 deg, not the test's
+# 2.0: at this setting the left 30/140 pose sits 2.59-2.80 deg from its
+# mesh for every noise seed tried, the others within 0.38
+# (tools/eval_ct_poses_torch.py), and the JAX package gives the same
+# offset on the same CT mesh (tools/compare_ct_meshes_jax.py); 3.5 is
+# that + 25 %, the margin the test gave retroversion
+CT_GATES = (("neckshaft", 3.5), ("retroversion", 4.5),
+            ("radius_curvature", 1.5), ("neck_z", 1.5))
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def card():
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def timed_cuda(fn, reps):
@@ -112,10 +157,34 @@ def recording(module, name, sink):
         setattr(module, name, fn)
 
 
-def bound(n_bytes, n_ops):
+@contextlib.contextmanager
+def cuda_timing(module, name, sink):
+    """Within the block, each call of module.name is bracketed by CUDA
+    events and waited for, and (result, ms) is appended to sink."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = fn(*args, **kwargs)
+        t1.record()
+        t1.synchronize()
+        sink.append((out, t0.elapsed_time(t1)))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, fn)
+
+
+def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move n_bytes and do n_ops float32 operations."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    to move n_bytes and do n_ops operations at ops_per_s (float32 by
+    default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -448,26 +517,19 @@ def walk_phase(dev, bone0_stacks, smi):
     return res
 
 
-def slice_kernel_phase(main_stacks, bone0_stacks, smi):
-    """Phase 5: the fused slice-stack kernel against the plain composition
-    on the card, and both timed per stack."""
+def check_stacks(cases):
+    """Each (name, args, kernel result or None) case against the plain
+    composition on the card, phase 5's tolerances; raises on a
+    disagreement.  Returns the worst differences over the cases and the
+    last case's."""
     from shoulder_tpu_torch.ops import slicing
 
-    plain = slicing.slice_stack_plain
     worst = {"contour_mm": 0.0, "centroid_mm": 0.0, "area_mm2": 0.0,
              "total_area_mm2": 0.0, "rows": 0, "loop_differs": 0}
-    cases = [(f"bone {i // 3} {STACKS[i % 3]}", stack_args(args), out)
-             for i, (args, out) in enumerate(main_stacks)]
-    sg0, _zs, interp0, band0, k0 = stack_args(bone0_stacks[1][0])
-    edge = edge_planes(sg0)
-    cases.append(("bone 0 edge planes", (sg0, edge, interp0, band0, k0),
-                  None))
-    sgf, zsf, interpf, bandf, _k = stack_args(bone0_stacks[0][0])
-    cases.append(("bone 0 full, k 64", (sgf, zsf, interpf, bandf, 64), None))
     for name, args, got in cases:
         if got is None:
             got = slicing.slice_stack_kernel(*args)
-        want = plain(*args)
+        want = slicing.slice_stack_plain(*args)
         torch.cuda.synchronize()
         d = stack_disagreement(got, want)
         ok = (d["contour_mm"] <= TOL_MM and d["centroid_mm"] <= TOL_MM
@@ -479,38 +541,65 @@ def slice_kernel_phase(main_stacks, bone0_stacks, smi):
             worst[key] = (worst[key] + d[key] if key in ("rows",
                                                          "loop_differs")
                           else max(worst[key], d[key]))
-    if d["overflow_rows"] == 0:
+    return worst, d
+
+
+def time_stack(name, args, smi):
+    """Kernel and plain times of one stack, its bound from these inputs,
+    its shared memory and blocks per SM, and each stage's time inside a
+    block."""
+    from shoulder_tpu_torch.ops import kernels, slicing
+
+    plain = slicing.slice_stack_plain
+    a = stack_args(args)
+    lib = kernels.library()
+    res = {"planes": int(a[1].shape[0]), "interp": a[2], "band": a[3],
+           "k": a[4], "smem_bytes": int(lib.slice_stack_smem_bytes(a[3], a[4])),
+           "blocks_per_sm": int(lib.slice_stack_blocks_per_sm(
+               a[3], a[4], a[1].device.index or 0))}
+    res["ms"] = timed_cuda(lambda: slicing.slice_stack_kernel(*a), 50)
+    res["plain_ms"] = timed_cuda(lambda: plain(*a), 3)
+    t0 = time.perf_counter()
+    plain(*a)
+    torch.cuda.synchronize()
+    res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    n_bytes, n_ops = slice_stack_work(*a)
+    res["bytes"], res["ops"] = n_bytes, n_ops
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, n_ops)
+    log(f"slice-stack time, {name} stack {res['planes']} x "
+        f"{res['interp']} (band {res['band']}, k {res['k']}, "
+        f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks per "
+        f"SM): kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms "
+        f"(host wall {res['plain_wall_ms']:.2f} ms), bound "
+        f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} "
+        f"({n_bytes} B) ({smi})")
+    res.update(stage_breakdown(a))
+    log(f"slice-stack stages, {name} stack, timed build "
+        f"{res['timed_ms']:.4f} ms, SM clock {res['sm_ghz']:.3f} GHz, "
+        f"block {res['block_us_median']:.2f} us (median); per stage, "
+        f"us median / mean: " + ", ".join(
+            f"{s} {res['stage_us_median'][s]:.2f} / "
+            f"{res['stage_us_mean'][s]:.2f}" for s in res['stage_us_median']))
+    return res
+
+
+def slice_kernel_phase(main_stacks, bone0_stacks, smi):
+    """Phase 5: the fused slice-stack kernel against the plain composition
+    on the card, and both timed per stack."""
+    cases = [(f"bone {i // 3} {STACKS[i % 3]}", stack_args(args), out)
+             for i, (args, out) in enumerate(main_stacks)]
+    sg0, _zs, interp0, band0, k0 = stack_args(bone0_stacks[1][0])
+    edge = edge_planes(sg0)
+    cases.append(("bone 0 edge planes", (sg0, edge, interp0, band0, k0),
+                  None))
+    sgf, zsf, interpf, bandf, _k = stack_args(bone0_stacks[0][0])
+    cases.append(("bone 0 full, k 64", (sgf, zsf, interpf, bandf, 64), None))
+    worst, last = check_stacks(cases)
+    if last["overflow_rows"] == 0:
         raise AssertionError("k = 64 did not overflow")
     log(f"slice-stack kernel vs plain, all {len(cases)} calls: {worst}")
-
-    per_stack = {}
-    for name, (args, _) in zip(STACKS, bone0_stacks):
-        a = stack_args(args)
-        res = {"planes": int(a[1].shape[0]), "interp": a[2], "band": a[3],
-               "k": a[4]}
-        res["ms"] = timed_cuda(lambda: slicing.slice_stack_kernel(*a), 50)
-        res["plain_ms"] = timed_cuda(lambda: plain(*a), 3)
-        t0 = time.perf_counter()
-        plain(*a)
-        torch.cuda.synchronize()
-        res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
-        n_bytes, n_ops = slice_stack_work(*a)
-        res["bytes"], res["ops"] = n_bytes, n_ops
-        res["bound_ms"], res["bound_by"] = bound(n_bytes, n_ops)
-        per_stack[name] = res
-        log(f"slice-stack time, {name} stack {res['planes']} x "
-            f"{res['interp']} (band {res['band']}, k {res['k']}): kernel "
-            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms (host wall "
-            f"{res['plain_wall_ms']:.2f} ms), bound "
-            f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} "
-            f"({n_bytes} B) ({smi})")
-        res.update(stage_breakdown(a))
-        log(f"slice-stack stages, {name} stack, timed build "
-            f"{res['timed_ms']:.4f} ms, SM clock {res['sm_ghz']:.3f} GHz, "
-            f"block {res['block_us_median']:.2f} us (median); per stage, "
-            f"us median / mean: " + ", ".join(
-                f"{s} {res['stage_us_median'][s]:.2f} / "
-                f"{res['stage_us_mean'][s]:.2f}" for s in res['stage_us_median']))
+    per_stack = {name: time_stack(name, args, smi)
+                 for name, (args, _) in zip(STACKS, bone0_stacks)}
     return worst, per_stack
 
 
@@ -533,15 +622,220 @@ def stage_breakdown(args):
             "stage_us_mean": dict(zip(slicing.STAGES, us.mean(0).tolist()))}
 
 
+def ct_config():
+    """DEFAULT_CONFIG's stacks and UNet segmenter with the padded sizes of
+    a 1.0 mm CT mesh (~250k faces, tools/eval_ct_pitch.py:37-50)."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+
+    return dataclasses.replace(
+        DEFAULT_CONFIG, max_faces=300000, max_verts=160000, max_chain=1024,
+        slice_compact_k=1024,
+        **{name: dataclasses.replace(getattr(DEFAULT_CONFIG, name), band=6144)
+           for name in STACKS})
+
+
+def welded_sizes(tris):
+    """(vertices, faces, watertight) of a triangle soup after the weld."""
+    from shoulder_tpu_torch.io import stl
+
+    verts, faces = stl.weld(np.asarray(tris, np.float64))
+    return verts.shape[0], faces.shape[0], stl.edge_face_adjacency(faces)[1]
+
+
+def conv_ops(model, run):
+    """(operations, result of run()): two per multiply-add of every
+    Conv3d of `model` over one call of run()."""
+    total = 0
+
+    def count(mod, _inputs, out):
+        nonlocal total
+        total += 2 * out.numel() * mod.in_channels * int(
+            np.prod(mod.kernel_size))
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Conv3d)]
+    try:
+        result = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total, result
+
+
+def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
+             cfg=None):
+    """Phase 9: the CT path, volumes -> 3D UNet -> marching tets -> weld
+    -> one landmark batch, on the card."""
+    from shoulder_tpu_torch.io import ingest, stl
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+    from shoulder_tpu_torch.models import ct_unet
+    from shoulder_tpu_torch.ops import chain_walk, marching_tets, slicing
+    from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.pipeline import ct
+
+    t_phase = time.perf_counter()
+    cfg = cfg or ct_config()
+    n = len(CT_POSES)
+    t0 = time.perf_counter()
+    vols = [ct.synth_ct_volume(shape=shape, spacing=(pitch,) * 3, seed=1 + i,
+                               noise_hu=15.0, side=side, retroversion_deg=rv,
+                               neck_shaft_deg=ns, **CT_BONE_KW)
+            for i, (side, rv, ns) in enumerate(CT_POSES)]
+    log(f"ct: {n} volumes {shape} at {pitch} mm in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+
+    # ---- per volume: UNet and marching tets on the card, weld and ingest
+    # on the host
+    specs, per_volume, seg0 = [], [], None
+    for i, (vol, origin, spacing) in enumerate(vols):
+        unet_calls, mt_calls = [], []
+        with cuda_timing(ct_unet, "apply_volume", unet_calls):
+            seg, iso = ct.segment_volume(vol, "unet", device=dev)
+        t0 = time.perf_counter()
+        with cuda_timing(marching_tets, "marching_tets", mt_calls):
+            spec = ct.volume_to_spec(seg, origin, spacing, iso, config=cfg,
+                                     max_tris=CT_MAX_TRIS, device=dev)
+        spec_s = time.perf_counter() - t0
+        (soup, mt_ms), = mt_calls
+        count = int(soup.count)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        soup.triangles[:count].cpu()
+        e1.record()
+        e1.synchronize()
+        d2h_ms = e0.elapsed_time(e1)
+        bone = seg > iso
+        thr = torch.as_tensor(vol, device=seg.device) > 300.0
+        iou = float((bone & thr).sum()) / float((bone | thr).sum())
+        # marching tets reads the volume once and writes the triangles
+        mt_bound_ms, _ = bound(seg.numel() * 4 + count * 36, 0)
+        row = {"unet_ms": unet_calls[0][1], "marching_tets_ms": mt_ms,
+               "marching_tets_bound_ms": mt_bound_ms, "d2h_ms": d2h_ms,
+               "weld_ingest_s": spec_s - (mt_ms + d2h_ms) / 1e3,
+               "triangles": count, "faces": spec.n_faces,
+               "verts": spec.n_verts, "iou": iou}
+        per_volume.append(row)
+        log(f"ct volume {i} ({CT_POSES[i][0]}): UNet {row['unet_ms']:.2f} ms, "
+            f"marching tets {mt_ms:.2f} ms ({count} triangles, bound "
+            f"{mt_bound_ms * 1e3:.2f} us by bytes), "
+            f"device-to-host {d2h_ms:.2f} ms, weld + ingest "
+            f"{row['weld_ingest_s']:.2f} s (host), {spec.n_faces} faces / "
+            f"{spec.n_verts} vertices, watertight {spec.watertight}, "
+            f"IoU vs HU > 300 {iou:.4f} ({smi})")
+        if not spec.watertight:
+            raise AssertionError(f"ct volume {i}: the mesh is not watertight")
+        if iou < CT_IOU:
+            raise AssertionError(f"ct volume {i}: UNet IoU {iou:.4f}")
+        specs.append(spec)
+        if i == 0:
+            seg0 = seg
+
+    # ---- one landmark batch, counted
+    bones = B.stack_bones(specs, dev)
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    t0 = time.perf_counter()
+    with recording(slicing, "slice_stack", []) as ct_stacks:
+        lm = B.compute_landmarks_batch(bones, rf, cfg=cfg, seg_model=seg2d)
+        torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches, walk_launches = slicing.launch_count, chain_walk.launch_count
+    log(f"ct batch of {n}: {batch_ms:.1f} ms wall, {launches} slice-stack "
+        f"launches, {walk_launches} walk launches ({smi})")
+    if launches != 3 * n or len(ct_stacks) != 3 * n or walk_launches != 0:
+        raise AssertionError(f"ct batch: {launches} slice-stack and "
+                             f"{walk_launches} walk launches, expected "
+                             f"{3 * n} and 0")
+    lm_ct = B.landmarks_to_numpy(lm)
+
+    # ---- the direct mesh of each generator bone, same config
+    direct = []
+    for side, rv, ns in CT_POSES:
+        v, f = synthetic_humerus(n_rings=220, n_theta=192, side=side,
+                                 retroversion_deg=rv, neck_shaft_deg=ns,
+                                 **CT_BONE_KW)
+        nb, wt = stl.edge_face_adjacency(f)
+        direct.append(ingest.spec_from_arrays("direct_mesh", v, f, nb, wt,
+                                              config=cfg))
+    lm_mesh = B.landmarks_to_numpy(B.compute_landmarks_batch(
+        B.stack_bones(direct, dev), rf, cfg=cfg, seg_model=seg2d))
+    for i, (side, _rv, _ns) in enumerate(CT_POSES):
+        got = {name: float(getattr(lm_ct, name)[i]) for name, _ in CT_GATES}
+        want = {name: float(getattr(lm_mesh, name)[i]) for name, _ in CT_GATES}
+        log(f"ct bone {i} ({side}): " + ", ".join(
+            f"{name} {got[name]:.3f} (mesh {want[name]:.3f})"
+            for name, _ in CT_GATES)
+            + f", side left {bool(lm_ct.side_is_left[i])} (mesh "
+            f"{bool(lm_mesh.side_is_left[i])}), overflow "
+            f"{bool(lm_ct.qc_slice_overflow[i])} (mesh "
+            f"{bool(lm_mesh.qc_slice_overflow[i])})")
+        if (bool(lm_ct.side_is_left[i]) != (side == "left")
+                or bool(lm_mesh.side_is_left[i]) != (side == "left")):
+            raise AssertionError(f"ct bone {i}: side differs")
+        if lm_ct.qc_slice_overflow[i] or lm_mesh.qc_slice_overflow[i]:
+            raise AssertionError(f"ct bone {i}: slice overflow")
+        for name, tol in CT_GATES:
+            if not abs(got[name] - want[name]) < tol:
+                raise AssertionError(f"ct bone {i}: {name} {got[name]} vs "
+                                     f"direct mesh {want[name]}")
+
+    # ---- card vs CPU: marching tets on volume 0's threshold surface, and
+    # the UNet on volume 0
+    vol, origin, spacing = vols[0]
+    args = (300.0, tuple(map(float, origin)), tuple(map(float, spacing)))
+    card = marching_tets.marching_tets(torch.as_tensor(vol, device=dev),
+                                       *args, max_tris=CT_MAX_TRIS)
+    cpu = marching_tets.marching_tets(torch.as_tensor(vol), *args,
+                                      max_tris=CT_MAX_TRIS)
+    count = int(cpu.count)
+    mt_err = float((card.triangles.cpu() - cpu.triangles).abs().max())
+    w_card = welded_sizes(card.triangles[:count].cpu().numpy())
+    w_cpu = welded_sizes(cpu.triangles[:count].numpy())
+    log(f"ct marching tets, card vs cpu on volume 0 at HU 300: count "
+        f"{int(card.count)} / {count}, max |triangle| {mt_err:.3g} mm, weld "
+        f"(vertices, faces, watertight) {w_card} / {w_cpu}")
+    if int(card.count) != count or mt_err > 1e-4 or w_card != w_cpu:
+        raise AssertionError("ct: marching tets differ between card and cpu")
+    model = ct_unet.load_model("cpu")
+    unet_ops, (seg_cpu, _) = conv_ops(
+        model, lambda: ct.segment_volume(vol, "unet", device="cpu"))
+    agree = float(((seg0.cpu() > 0) == (seg_cpu > 0)).double().mean())
+    log(f"ct UNet, card vs cpu on volume 0: mask agreement {agree:.6f}, max "
+        f"|logit| difference {float((seg0.cpu() - seg_cpu).abs().max()):.3g}")
+    if agree < 0.999:
+        raise AssertionError(f"ct: UNet masks agree on {agree:.6f} only")
+    # the UNet reads the volume and its weights once and writes the logits;
+    # its convolutions are bf16 tensor-core work
+    unet_bytes = 2 * seg_cpu.numel() * 4 + sum(
+        t.numel() * t.element_size() for t in model.parameters())
+    unet_bound_ms, unet_bound_by = bound(unet_bytes, unet_ops, BF16_OPS_PER_S)
+    warm = [row["unet_ms"] for row in per_volume[1:]]
+    log(f"ct UNet work: {unet_ops / 1e9:.2f} GFLOP of convolutions, "
+        f"{unet_bytes} B; bound {unet_bound_ms:.4f} ms by {unet_bound_by}; "
+        f"warm calls {min(warm):.2f}-{max(warm):.2f} ms ({smi})")
+
+    # ---- the kernel against the plain composition on every CT stack
+    worst, _ = check_stacks(
+        [(f"ct bone {i // 3} {STACKS[i % 3]}", stack_args(a), out)
+         for i, (a, out) in enumerate(ct_stacks)])
+    log(f"slice-stack kernel vs plain, all {len(ct_stacks)} ct stacks: "
+        f"{worst}")
+    per_stack = {name: time_stack(f"ct {name}", a, smi)
+                 for name, (a, _) in zip(STACKS, ct_stacks[:3])}
+    total_s = time.perf_counter() - t_phase
+    log(f"ct phase: {total_s:.1f} s in all ({smi})")
+    return {"launches": launches, "worst": worst, "per_stack": per_stack,
+            "per_volume": per_volume, "batch_ms": batch_ms,
+            "unet_gflop": unet_ops / 1e9, "unet_bound_ms": unet_bound_ms,
+            "unet_bound_by": unet_bound_by, "total_s": total_s}
+
+
 def main(td):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's main path "
                          "needs one card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda:0")
@@ -682,6 +976,8 @@ def main(td):
 
     facade = facade_phase(td, paths[0], dev, lm_np, smi)
     cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
+    ct_res = ct_phase(dev, rf, seg, smi)
+    ct_worst = ct_res["worst"]
 
     prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{
@@ -692,17 +988,35 @@ def main(td):
         "launches": launches,
         "launches_per_phase": {"pipeline": launches,
                                "facade": facade,
-                               "cohort": cohort_launches},
-        "max_abs_err": max(worst["contour_mm"], worst["centroid_mm"]),
-        "max_area_err_mm2": max(worst["area_mm2"], worst["total_area_mm2"]),
-        "rows_compared": worst["rows"],
-        "rows_best_loop_differs": worst["loop_differs"],
+                               "cohort": cohort_launches,
+                               "ct": ct_res["launches"]},
+        "max_abs_err": max(worst["contour_mm"], worst["centroid_mm"],
+                           ct_worst["contour_mm"], ct_worst["centroid_mm"]),
+        "max_area_err_mm2": max(worst["area_mm2"], worst["total_area_mm2"],
+                                ct_worst["area_mm2"],
+                                ct_worst["total_area_mm2"]),
+        "rows_compared": worst["rows"] + ct_worst["rows"],
+        "rows_best_loop_differs": (worst["loop_differs"]
+                                   + ct_worst["loop_differs"]),
         "ms": prox["ms"],
         "plain_ms": prox["plain_ms"],
         "bound_ms": prox["bound_ms"],
         "bound_by": prox["bound_by"],
         "library_ms": None,
         "per_stack": per_stack,
+        "per_stack_ct": ct_res["per_stack"],
+        "ct": {"max_abs_err": max(ct_worst["contour_mm"],
+                                  ct_worst["centroid_mm"]),
+               "max_area_err_mm2": max(ct_worst["area_mm2"],
+                                       ct_worst["total_area_mm2"]),
+               "rows_compared": ct_worst["rows"],
+               "rows_best_loop_differs": ct_worst["loop_differs"],
+               "per_volume": ct_res["per_volume"],
+               "unet_gflop": ct_res["unet_gflop"],
+               "unet_bound_ms": ct_res["unet_bound_ms"],
+               "unet_bound_by": ct_res["unet_bound_by"],
+               "batch_ms": ct_res["batch_ms"],
+               "phase_s": ct_res["total_s"]},
     }, {
         "name": "chain_walk",
         "route": "cuda",

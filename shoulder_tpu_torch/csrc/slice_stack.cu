@@ -584,6 +584,25 @@ long long slice_stack_smem_bytes(int band, int k) {
   return static_cast<long long>(smem_bytes(band, k));
 }
 
+// Blocks of the (untimed) kernel that one SM of device `device` holds at
+// once for this band and k, by the runtime's occupancy calculator; a
+// negative value is minus the CUDA error.
+int slice_stack_blocks_per_sm(int band, int k, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  const size_t smem = smem_bytes(band, k);
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(slice_stack_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, slice_stack_kernel<false>, kThreads, smem);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // Launches one block per plane on `stream` (a cudaStream_t) of device
 // `device` and returns cudaGetLastError() of the launch: 0 when it was
 // accepted.  Arguments the kernel cannot index safely return

@@ -4,6 +4,9 @@
   ("params/ConvBlock_0/Conv_0/kernel", as tools/export_unet_npz.py writes
   it), into a `state_dict` of models/unet.UNet.  Conv kernels go from
   Flax's HWIO to torch's OIHW; GroupNorm scale/bias become weight/bias.
+* `ct_unet_state_dict`: the same for the CT 3D UNet's tree
+  ("params/ConvBlock3D_0/Conv_0/kernel", ...) into a `state_dict` of
+  models/ct_unet.CTUNet; kernels go from DHWIO to OIDHW.
 * `forest_tensors`: the forest npz (shoulder_tpu_torch/models/params/
   rfc_bg3.npz, the port's copy of the JAX package's) into the tensors of
   models/forest.ForestParams.
@@ -14,19 +17,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+
 # Flax names submodules by creation order: the encoder blocks, the
 # bottleneck, then per decoder level one upsampling Conv and one block
-_N_LEVELS = 3
-
-
-def _module_map():
+def _module_map(block: str, n_levels: int):
     out = {}
-    for i in range(_N_LEVELS):
-        out[f"ConvBlock_{i}"] = f"down.{i}"
-        out[f"ConvBlock_{_N_LEVELS + 1 + i}"] = f"up_blocks.{i}"
+    for i in range(n_levels):
+        out[f"{block}_{i}"] = f"down.{i}"
+        out[f"{block}_{n_levels + 1 + i}"] = f"up_blocks.{i}"
         out[f"Conv_{i}"] = f"up_convs.{i}"
-    out[f"ConvBlock_{_N_LEVELS}"] = "mid"
-    out[f"Conv_{_N_LEVELS}"] = "head"
+    out[f"{block}_{n_levels}"] = "mid"
+    out[f"Conv_{n_levels}"] = "head"
     return out
 
 
@@ -35,24 +36,33 @@ _BLOCK_PARTS = {"Conv_0": "conv0", "Conv_1": "conv1",
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
-def unet_state_dict(flat: dict) -> dict:
-    """{"params/<module>/[<part>/]<leaf>": array} -> UNet state_dict."""
-    modules = _module_map()
+def _state_dict(flat: dict, block: str, n_levels: int) -> dict:
+    modules = _module_map(block, n_levels)
     state = {}
     for key, arr in flat.items():
         parts = key.split("/")
         if parts[0] != "params":
-            raise KeyError(f"unexpected UNet parameter {key}")
+            raise KeyError(f"unexpected parameter {key}")
         name = modules[parts[1]]
         if len(parts) == 4:
             name += "." + _BLOCK_PARTS[parts[2]]
         leaf = parts[-1]
         arr = np.asarray(arr, np.float32)
-        if leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
-        state[f"{name}.{_LEAVES[leaf]}"] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        if leaf == "kernel":          # (*spatial, I, O) -> (O, I, *spatial)
+            nd = arr.ndim
+            arr = arr.transpose(nd - 1, nd - 2, *range(nd - 2))
+        state[f"{name}.{_LEAVES[leaf]}"] = torch.tensor(arr)  # a copy
     return state
+
+
+def unet_state_dict(flat: dict) -> dict:
+    """{"params/<module>/[<part>/]<leaf>": array} -> UNet state_dict."""
+    return _state_dict(flat, "ConvBlock", 3)
+
+
+def ct_unet_state_dict(flat: dict) -> dict:
+    """{"params/<module>/[<part>/]<leaf>": array} -> CTUNet state_dict."""
+    return _state_dict(flat, "ConvBlock3D", 2)
 
 
 def forest_tensors(z: dict, device) -> dict:

@@ -110,5 +110,7 @@ def library():
         lib.slice_stack_launch_timed.restype = i32
         lib.slice_stack_smem_bytes.argtypes = [i32, i32]
         lib.slice_stack_smem_bytes.restype = ctypes.c_longlong
+        lib.slice_stack_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.slice_stack_blocks_per_sm.restype = i32
         _lib = lib
     return _lib

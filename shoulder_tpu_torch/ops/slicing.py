@@ -498,7 +498,13 @@ def _order_loop(crossed, start, succ, lab, best, count_best, max_chain: int,
         rnk = rnk + rnk[ptr]
         ptr = ptr[ptr]
     position = torch.where(is_rep, 0, count_best - rnk)
-    position = torch.where(member & (position < max_chain), position, max_chain)
+    # a chain cut by an overflow never reaches the start face, so its rank
+    # runs past the count: the JAX package's scatter (`.at[].set`, mode
+    # "drop") wraps such a negative position once from the end and drops
+    # what lies outside [0, max_chain); so do we
+    position = torch.where(position < 0, position + max_chain, position)
+    position = torch.where(member & (position >= 0) & (position < max_chain),
+                           position, max_chain)
     points = torch.zeros((max_chain + 1, 2), dtype=start.dtype,
                          device=start.device)
     points.index_copy_(0, position, start)

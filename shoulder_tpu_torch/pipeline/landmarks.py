@@ -135,6 +135,9 @@ def _canal(stack: slicing.SliceStack, bone: BoneTensors, proximal: bool,
 
 
 # --------------------------------------------------------------------- B
+_NECK_MIN_K = 512  # the JAX package's slots for the surgical-neck plane
+
+
 def _surgical_neck(stack, bone: BoneTensors, proximal: bool,
                    cfg: PipelineConfig, max_chain: int, sg):
     n = stack.zs.shape[0]
@@ -145,8 +148,13 @@ def _surgical_neck(stack, bone: BoneTensors, proximal: bool,
     neck_z = _take(stack.zs[s:e], t)
 
     band = min(cfg.full.band, bone.faces.shape[0])
-    raw, overflow = slicing.slice_raw_banded(sg, neck_z, band, max_chain,
-                                             "central")
+    # the JAX package gives this plane slice_raw_banded's default 512 slots
+    # whatever the config; a 1.0 mm CT mesh crosses more (574 on
+    # chip_smoke.py's CT bone 0), so the port gives it at least the
+    # stacks' slots
+    raw, overflow = slicing.slice_raw_banded(
+        sg, neck_z, band, max_chain, "central",
+        k=max(_NECK_MIN_K, cfg.slice_compact_k))
     pts3 = torch.cat([raw.points, neck_z.expand(max_chain, 1)], dim=1)
     pts_ct = _to_ct(pts3, bone.obb_transform)
     valid = torch.arange(max_chain, device=pts3.device) < raw.n

@@ -7,6 +7,7 @@ jax), so its ingest must reproduce shoulder_tpu's BoneSpec.
 """
 
 import ast
+import fcntl
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +22,29 @@ from shoulder_tpu_torch.io import ingest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "shoulder_tpu"}
+
+
+def _build_native_ingest_once():
+    """Build the JAX package's native ingest library one process at a
+    time, before this process runs any test.
+
+    shoulder_tpu/io/native.py builds the library on its first use, with
+    g++ writing the .so in place.  Under pytest-xdist several workers
+    reach that first use together, and a worker that finds the file
+    half-written fails to load it ("file too short"): every test of the
+    module whose fixture ingested first then errors.  Each worker collects
+    this module before it runs a test, so building here under an exclusive
+    lock leaves every worker a finished library."""
+    from shoulder_tpu.io import native
+
+    lock = ROOT / "shoulder_tpu_torch" / "_build" / "native_ingest.lock"
+    lock.parent.mkdir(parents=True, exist_ok=True)
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        native.available()
+
+
+_build_native_ingest_once()
 
 
 @pytest.mark.parametrize("side,proximal", [("left", False),
@@ -86,6 +110,12 @@ with tempfile.TemporaryDirectory() as td:
     hum = shoulder_tpu_torch.Humerus(p, config=tiny_config(), device="cpu")
     side = hum.side()
 assert side in ("left", "right")
+from shoulder_tpu_torch.ops import marching_tets
+from shoulder_tpu_torch.pipeline import ct
+vol, _origin, _spacing = ct.synth_ct_volume(shape=(40, 24, 24),
+                                            spacing=(8.0, 6.0, 6.0))
+seg, iso = ct.segment_volume(vol, "unet", device="cpu")
+assert int(marching_tets.marching_tets(seg, iso).count) > 0
 leaked = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "flax", "orbax", "shoulder_tpu") and sys.modules[m]]
 assert not leaked, leaked

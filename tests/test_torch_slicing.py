@@ -147,6 +147,29 @@ def test_slice_raw_banded_matches_jax(geoms, select):
                            atol=1e-3)
 
 
+@pytest.mark.parametrize("select", ["central", "largest"])
+def test_slice_raw_banded_overflow_matches_jax(geoms, select):
+    """k below the plane's crossing count: the compaction drops faces, the
+    chains break, and ranks run past the loop's count.  The port places
+    those points where the JAX package's scatter does (negative positions
+    wrap once from the end) instead of failing on them."""
+    v_obb, jsg, tsg, _ = geoms
+    zlo, zhi = v_obb[:, 2].min(), v_obb[:, 2].max()
+    wrapped = 0
+    for rel in (0.3, 0.55, 0.8):
+        z = np.float32(zlo + rel * (zhi - zlo))
+        jraw, jover = jsl.slice_raw_banded(jsg, z, 512, CFG.max_chain, select,
+                                           k=24)
+        traw, tover = tsl.slice_raw_banded(tsg, torch.as_tensor(z), 512,
+                                           CFG.max_chain, select, k=24)
+        assert bool(jover) and bool(tover)
+        assert int(traw.n) == int(jraw.n)
+        jpts = np.asarray(jraw.points)
+        assert np.allclose(traw.points.numpy(), jpts, atol=1e-4)
+        wrapped += int(np.abs(jpts[int(jraw.n):]).sum() > 0)
+    assert wrapped > 0      # some chain did land past the count
+
+
 def test_compact_points_matches_jax():
     rng = np.random.default_rng(3)
     pts = rng.normal(size=(500, 3)).astype(np.float32)
