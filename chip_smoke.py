@@ -54,6 +54,31 @@ Phases (any failure raises, so the exit code is non-zero):
      99.9 %), and all 12 stacks against the plain composition with
      phase 5's tolerances; per-volume times with the UNet's and marching
      tets' bounds, and the kernel's times at the CT sizes.
+ 10. training: a corpus of 8 random synthetic humeri by
+     tools/make_unet_corpus_torch.build_corpus at DEFAULT_CONFIG on the
+     card (exactly 2 slice-stack launches per extracted bone, no walk
+     launch, images finite, mask fractions inside (0.05, 0.95), the first
+     bone's two stacks against the plain composition with phase 5's
+     tolerances); the articular UNet at full width (512 x 512, batch 16):
+     30 `train_mixture` steps on that corpus from Flax-like random
+     weights (losses finite, the mean of the last five below the mean of
+     the first five), one step on a fixed batch on the card and on the
+     CPU (loss within 2e-2 relative; every parameter's gradient within
+     5e-2 relative L2 in bf16 from random weights and in float32 from the
+     shipped weights; in bf16 from the shipped weights the gradient is a
+     small residual of sums that cancel, which bf16 rounding alone moves
+     as far as the devices differ: reported beside each device's
+     distance from its own float32 gradient, and the card's bf16 gradient
+     held to a cosine of 0.5 with its float32 one), then save_params -> load_model -> segment_image on
+     phase 4's bone 0 image equal to the in-memory model's mask, and a
+     zero-step save of the shipped weights giving phase 4's bone 0 its
+     metrics again, exactly; the CT UNet: 10 `train` steps at 64 x 48 x 48 from
+     the shipped weights and 10 from random ones (losses finite, the
+     second run's last below its first), the trained weights served by
+     `apply_volume` after a save; ms per training step (CUDA events, 10
+     warm steps), peak memory and the steps' convolution bounds for both.
+     cuDNN's TF32 is off (the package sets it so): float32 convolutions
+     run in full float32, the bf16 ones accumulate in float32.
 
 The bone STLs live in one temporary directory for the whole run.
 
@@ -64,7 +89,9 @@ the card's name and power limit as nvidia-smi gives them, and
 """
 
 import contextlib
+import copy
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -644,7 +671,7 @@ def welded_sizes(tris):
 
 def conv_ops(model, run):
     """(operations, result of run()): two per multiply-add of every
-    Conv3d of `model` over one call of run()."""
+    Conv2d and Conv3d of `model` over one call of run()."""
     total = 0
 
     def count(mod, _inputs, out):
@@ -653,7 +680,7 @@ def conv_ops(model, run):
             np.prod(mod.kernel_size))
 
     hooks = [m.register_forward_hook(count) for m in model.modules()
-             if isinstance(m, torch.nn.Conv3d)]
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
     try:
         result = run()
     finally:
@@ -831,6 +858,260 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
             "unet_bound_by": unet_bound_by, "total_s": total_s}
 
 
+def load_tool(name):
+    """tools/<name>.py beside this script, as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def step_grads(model_from_flat, flat, loss_fn, images, labels, device,
+               compute_dtype=torch.bfloat16):
+    """(loss, {name: gradient on the host}) of one forward and backward
+    from the flat weights `flat` on `device`."""
+    model = model_from_flat(flat, compute_dtype, serving=False).to(device)
+    loss = loss_fn(model, images.to(device), labels.to(device))
+    loss.backward()
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def time_steps(model, optimizer, loss_fn, images, labels, smi, name):
+    """ms per optimiser step on a fixed batch (CUDA events, 10 warm
+    steps), the peak memory of those steps, and their bound: forward and
+    backward convolution operations (three times the forward count) over
+    the bf16 tensor-core rate."""
+    from shoulder_tpu_torch.models import unet_train
+
+    def step():
+        return unet_train.train_step(model, optimizer, loss_fn, images, labels)
+
+    fwd_ops, _ = conv_ops(model, lambda: loss_fn(model, images, labels))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed_cuda(step, 10)
+    peak = torch.cuda.max_memory_allocated()
+    n_bytes = 2 * images.numel() * 4 + 3 * sum(
+        p.numel() * 4 for p in model.parameters())
+    bound_ms, bound_by = bound(n_bytes, 3 * fwd_ops, BF16_OPS_PER_S)
+    log(f"train {name}: {ms:.2f} ms per step on {tuple(images.shape)} "
+        f"(forward, backward, AdamW), peak memory {peak / 2**20:.1f} MiB, "
+        f"{3 * fwd_ops / 1e9:.2f} GFLOP of convolutions forward and "
+        f"backward, bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{100 * bound_ms / ms:.3g} % of it ({smi})")
+    return {"ms": ms, "peak_bytes": peak, "gflop": 3 * fwd_ops / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi, n_corpus=8,
+                steps=30, batch=16, ct_steps=10, ct_size=(64, 48, 48),
+                cfg=None):
+    """Phase 10: corpus, both trainers, checkpoints and serving from them,
+    on the card."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.models import convert, ct_unet, unet, unet_train
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+    from shoulder_tpu_torch.pipeline import ct
+    from shoulder_tpu_torch.pipeline import landmarks as L
+
+    t_phase = time.perf_counter()
+    cfg = cfg or DEFAULT_CONFIG
+    log(f"train: cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    # ---- corpus: every extraction timed and counted
+    tool = load_tool("make_unet_corpus_torch")
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    t0 = time.perf_counter()
+    with recording(slicing, "slice_stack", []) as stacks, \
+            cuda_timing(tool, "extract_one", []) as extractions:
+        images, masks = tool.build_corpus(n_corpus, 0, config=cfg, device=dev)
+    corpus_s = time.perf_counter() - t0
+    launches, walk_launches = slicing.launch_count, chain_walk.launch_count
+    n_extracted = len(extractions)
+    extract_s = sum(ms for _, ms in extractions) / 1e3 / n_extracted
+    log(f"corpus: {images.shape[0]} pairs {images.shape[1:]} from "
+        f"{n_extracted} bones in {corpus_s:.1f} s; extraction "
+        f"{extract_s:.3f} s per bone (first {extractions[0][1]:.0f} ms, "
+        f"ingest apart), host ingest and the rest "
+        f"{(corpus_s - extract_s * n_extracted) / n_extracted:.2f} s per "
+        f"bone; {launches} slice-stack launches, {walk_launches} walk "
+        f"launches ({smi})")
+    if launches != 2 * n_extracted or len(stacks) != launches \
+            or walk_launches != 0:
+        raise AssertionError(f"corpus: {launches} slice-stack and "
+                             f"{walk_launches} walk launches for "
+                             f"{n_extracted} bones, expected "
+                             f"{2 * n_extracted} and 0")
+    fracs = masks.reshape(masks.shape[0], -1).mean(axis=1)
+    log("corpus mask fractions: " + ", ".join(f"{f:.3f}" for f in fracs))
+    if images.shape != (n_corpus,) + tuple(bone0_image.shape) \
+            or not np.isfinite(images).all() \
+            or not ((fracs > 0.05) & (fracs < 0.95)).all():
+        raise AssertionError("corpus: a kept pair is degenerate")
+    worst, _ = check_stacks(
+        [(f"corpus bone 0 {name}", stack_args(args), out)
+         for name, (args, out) in zip(STACKS[:2], stacks[:2])])
+    del stacks
+
+    # ---- articular UNet: (a) from random weights on the corpus
+    size = images.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with cuda_timing(unet_train, "train_step", []) as step_ms, \
+            cuda_timing(unet_train, "mixture_batch", []) as batch_ms:
+        model, losses = unet_train.train_mixture(
+            images, masks, steps=steps, batch=batch, size=size, log_every=1,
+            device=dev, generator=gen)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step_ms, batch_ms = ([ms for _, ms in sink] for sink in (step_ms, batch_ms))
+    log(f"train unet: {steps} steps of batch {batch} from random weights, "
+        f"{wall_ms:.1f} ms wall per step with the batch's synthesis and "
+        f"the loss read back (the step itself: first {step_ms[0]:.0f} ms, "
+        f"median of the rest {np.median(step_ms[1:]):.1f} ms; the batch: "
+        f"first {batch_ms[0]:.0f} ms, median of the rest "
+        f"{np.median(batch_ms[1:]):.1f} ms); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, mean of the first five {first:.4f}, of the "
+        f"last five {last:.4f}")
+    if len(losses) != steps or not np.isfinite(losses).all() \
+            or not last < first:
+        raise AssertionError("train unet: the loss did not fall")
+
+    # ---- (b) one step from the shipped weights, card against CPU
+    corpus_dev = tuple(torch.as_tensor(a).to(dev, torch.float16)
+                       for a in (images, masks))
+    n_proc, n_corp = unet_train.mixture_counts(batch, 0.25)
+    fixed = unet_train.mixture_batch(gen, *corpus_dev, n_corp, n_proc, size)
+    shipped = unet_train.load_params()
+    fresh = convert.unet_flat_params(
+        unet_train.new_model(torch.Generator().manual_seed(1)).state_dict())
+    t0 = time.perf_counter()
+    worst_rel, shipped_f32 = {}, None
+    for name, flat, dtype in (("random weights, bf16", fresh, torch.bfloat16),
+                              ("shipped weights, float32", shipped,
+                               torch.float32),
+                              ("shipped weights, bf16", shipped,
+                               torch.bfloat16)):
+        args = (unet.model_from_flat, flat, unet_train.dice_bce_loss, *fixed)
+        loss_card, g_card = step_grads(*args, dev, dtype)
+        loss_cpu, g_cpu = step_grads(*args, "cpu", dtype)
+        rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm())
+               for n in g_cpu}
+        x, y = (torch.cat([g[n].flatten() for n in g_cpu]).double()
+                for g in (g_card, g_cpu))
+        worst_rel[name] = max(rel.values())
+        log(f"train unet, one step from {name}, card vs cpu: loss "
+            f"{loss_card:.6f} / {loss_cpu:.6f}; gradient relative L2, "
+            f"largest over the {len(rel)} parameters "
+            f"{worst_rel[name]:.3g} ({max(rel, key=rel.get)}), whole "
+            f"gradient {float((x - y).norm() / y.norm()):.3g}, cosine "
+            f"{float(x @ y / x.norm() / y.norm()):.6f}")
+        if not abs(loss_card - loss_cpu) <= 2e-2 * abs(loss_cpu):
+            raise AssertionError(f"train unet ({name}): card and cpu losses "
+                                 f"differ")
+        # at the shipped weights the gradient is a small residual of sums
+        # that cancel, and bf16 rounding alone moves it as far as the two
+        # devices differ: gated in float32 there, in bf16 where the
+        # gradient is large (random weights); the bf16 gradient there is
+        # held to each device's own float32 one instead
+        if name == "shipped weights, float32":
+            shipped_f32 = (x, y)
+        elif name == "shipped weights, bf16":
+            off_card, off_cpu = (float((g - g32).norm() / g32.norm())
+                                 for g, g32 in zip((x, y), shipped_f32))
+            cos_card, cos_cpu = (float(g @ g32 / g.norm() / g32.norm())
+                                 for g, g32 in zip((x, y), shipped_f32))
+            worst_rel["shipped weights, bf16 vs float32 on the card"] = off_card
+            worst_rel["shipped weights, bf16 vs float32 on the cpu"] = off_cpu
+            log(f"train unet, shipped weights, whole gradient in bf16 against "
+                f"the same device's in float32: relative L2 card "
+                f"{off_card:.3g}, cpu {off_cpu:.3g}; cosine card "
+                f"{cos_card:.4f}, cpu {cos_cpu:.4f}")
+            if not cos_card >= 0.5:
+                raise AssertionError("train unet: the card's bf16 gradient "
+                                     "at the shipped weights does not point "
+                                     "along its float32 one")
+        if name != "shipped weights, bf16" and worst_rel[name] > 5e-2:
+            raise AssertionError(f"train unet ({name}): the gradient of "
+                                 f"{max(rel, key=rel.get)} differs by "
+                                 f"{worst_rel[name]:.3g}")
+    log(f"train unet: the three cpu steps and the card's took "
+        f"{time.perf_counter() - t0:.1f} s")
+    timed_model = unet.model_from_flat(shipped, serving=False).to(dev)
+    unet_step = time_steps(timed_model, unet_train.adamw(timed_model, 3e-4),
+                           unet_train.dice_bce_loss, *fixed, smi, "unet")
+    del timed_model, g_card, g_cpu, corpus_dev, fixed
+
+    # ---- (c) checkpoints: save, load, serve
+    path = os.path.join(td, "unet_trained.npz")
+    unet_train.save_params(model, path)
+    served = unet.load_model(dev, path)
+    mask = unet.segment_image(served, bone0_image)
+    want = unet.segment_image(unet.serving_(copy.deepcopy(model)), bone0_image)
+    log(f"serve unet: trained mask on phase 4's bone 0 image covers "
+        f"{float(mask.mean()):.4f}, equal to the in-memory model's: "
+        f"{torch.equal(mask, want)}")
+    if not torch.equal(mask, want):
+        raise AssertionError("serve unet: the saved model's mask differs")
+    zero = os.path.join(td, "unet_zero_step.npz")
+    unet_train.save_params(unet.model_from_flat(shipped, serving=False), zero)
+    lm0 = L.compute_landmarks(bone0, rf, cfg=cfg,
+                              seg_model=unet.load_model(dev, zero))
+    for name in ("neckshaft", "retroversion", "radius_curvature"):
+        got, ref = float(getattr(lm0, name)), float(getattr(lm_np, name)[0])
+        log(f"serve unet, zero-step save: {name} {got!r} (phase 4 {ref!r})")
+        if got != ref:
+            raise AssertionError(f"serve unet: {name} differs from phase 4")
+    if bool(lm0.side_is_left) != bool(lm_np.side_is_left[0]):
+        raise AssertionError("serve unet: side differs from phase 4")
+
+    # ---- CT UNet: from the shipped weights, then from random ones
+    ct_losses = {}
+    for name, init in (("shipped", ct_unet.load_params()), ("random", None)):
+        t0 = time.perf_counter()
+        ct_model, ct_losses[name] = ct_unet.train(
+            steps=ct_steps, size=ct_size, log_every=1, init_params=init,
+            device=dev)
+        torch.cuda.synchronize()
+        log(f"train ct_unet from {name} weights: {ct_steps} steps at "
+            f"{ct_size}, {(time.perf_counter() - t0) * 1e3 / ct_steps:.1f} "
+            f"ms wall per step with the volume's synthesis on the host; "
+            f"loss {ct_losses[name][0]:.4f} -> {ct_losses[name][-1]:.4f}")
+        if len(ct_losses[name]) != ct_steps \
+                or not np.isfinite(ct_losses[name]).all():
+            raise AssertionError(f"train ct_unet ({name}): bad losses")
+    if not ct_losses["random"][-1] < ct_losses["random"][0]:
+        raise AssertionError("train ct_unet: the loss did not fall")
+    vol, _, _ = ct.synth_ct_volume(shape=ct_size,
+                                   spacing=(300.0 / ct_size[0], 1.8, 1.8))
+    vol = torch.as_tensor(vol, device=dev)
+    ct_step = time_steps(
+        ct_model, unet_train.adamw(ct_model, 1e-3), unet_train.bce_loss,
+        vol[None, None] / ct_unet.HU_SCALE,
+        (vol > 350.0).to(torch.float32)[None, None], smi, "ct_unet")
+    ct_path = os.path.join(td, "ct_unet_trained.npz")
+    ct_unet.save_params(ct_model, ct_path)
+    logits = ct_unet.apply_volume(ct_unet.load_model(dev, ct_path), vol)
+    ct_want = ct_unet.apply_volume(unet.serving_(copy.deepcopy(ct_model)), vol)
+    if logits.shape != vol.shape or not torch.isfinite(logits).all() \
+            or not torch.equal(logits, ct_want):
+        raise AssertionError("serve ct_unet: the saved model's logits differ")
+    log(f"serve ct_unet: logits of the saved model equal the in-memory "
+        f"model's, bone fraction {float((logits > 0).float().mean()):.4f}")
+    total_s = time.perf_counter() - t_phase
+    log(f"training phase: {total_s:.1f} s in all ({smi})")
+    return {"launches": launches, "worst": worst, "bones": n_extracted,
+            "extract_s_per_bone": extract_s, "unet_step": unet_step,
+            "ct_unet_step": ct_step, "unet_losses": losses,
+            "card_vs_cpu_gradient": worst_rel,
+            "ct_losses": ct_losses, "total_s": total_s}
+
+
 def main(td):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's main path "
@@ -878,9 +1159,12 @@ def main(td):
     bones = B.stack_bones(specs, dev)
 
     # ---- bone 0's three stacks (they give phase 3 its real rows)
-    with recording(slicing, "slice_stack", []) as bone0_stacks:
-        L.compute_landmarks(B.bone_tensors(specs[0], dev), rf, seg_model=seg)
+    bone0 = B.bone_tensors(specs[0], dev)
+    with recording(slicing, "slice_stack", []) as bone0_stacks, \
+            recording(unet, "segment_image", []) as bone0_seg:
+        L.compute_landmarks(bone0, rf, seg_model=seg)
     torch.cuda.synchronize()
+    bone0_image = bone0_seg[0][0][1]
     if len(bone0_stacks) != 3:
         raise AssertionError(f"expected 3 stacks, saw {len(bone0_stacks)}")
     walk = walk_phase(dev, bone0_stacks, smi)
@@ -978,6 +1262,8 @@ def main(td):
     cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
     ct_res = ct_phase(dev, rf, seg, smi)
     ct_worst = ct_res["worst"]
+    train_res = train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi)
+    train_worst = train_res["worst"]
 
     prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{
@@ -989,15 +1275,18 @@ def main(td):
         "launches_per_phase": {"pipeline": launches,
                                "facade": facade,
                                "cohort": cohort_launches,
-                               "ct": ct_res["launches"]},
-        "max_abs_err": max(worst["contour_mm"], worst["centroid_mm"],
-                           ct_worst["contour_mm"], ct_worst["centroid_mm"]),
-        "max_area_err_mm2": max(worst["area_mm2"], worst["total_area_mm2"],
-                                ct_worst["area_mm2"],
-                                ct_worst["total_area_mm2"]),
-        "rows_compared": worst["rows"] + ct_worst["rows"],
+                               "ct": ct_res["launches"],
+                               "corpus": train_res["launches"]},
+        "max_abs_err": max(w[key] for w in (worst, ct_worst, train_worst)
+                           for key in ("contour_mm", "centroid_mm")),
+        "max_area_err_mm2": max(w[key]
+                                for w in (worst, ct_worst, train_worst)
+                                for key in ("area_mm2", "total_area_mm2")),
+        "rows_compared": (worst["rows"] + ct_worst["rows"]
+                          + train_worst["rows"]),
         "rows_best_loop_differs": (worst["loop_differs"]
-                                   + ct_worst["loop_differs"]),
+                                   + ct_worst["loop_differs"]
+                                   + train_worst["loop_differs"]),
         "ms": prox["ms"],
         "plain_ms": prox["plain_ms"],
         "bound_ms": prox["bound_ms"],
@@ -1017,6 +1306,10 @@ def main(td):
                "unet_bound_by": ct_res["unet_bound_by"],
                "batch_ms": ct_res["batch_ms"],
                "phase_s": ct_res["total_s"]},
+        "training": {key: train_res[key] for key in
+                     ("bones", "extract_s_per_bone", "unet_step",
+                      "ct_unet_step", "unet_losses", "ct_losses",
+                      "card_vs_cpu_gradient", "total_s")},
     }, {
         "name": "chain_walk",
         "route": "cuda",

@@ -79,7 +79,10 @@ def _imported_roots(path: Path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "shoulder_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "tools" / "make_unet_corpus_torch.py",
+              ROOT / "tools" / "train_unet_torch.py",
+              ROOT / "tools" / "grad_noise_torch.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_roots(p) if m in FORBIDDEN]
@@ -116,6 +119,32 @@ vol, _origin, _spacing = ct.synth_ct_volume(shape=(40, 24, 24),
                                             spacing=(8.0, 6.0, 6.0))
 seg, iso = ct.segment_volume(vol, "unet", device="cpu")
 assert int(marching_tets.marching_tets(seg, iso).count) > 0
+# the training path: corpus tool, both trainers, checkpoint, serving
+import importlib.util
+import torch
+from shoulder_tpu_torch.models import ct_unet, unet, unet_train
+assert "shoulder_tpu_torch.models.unet_train" in sys.modules
+tools = {}
+for name in ("make_unet_corpus_torch", "train_unet_torch"):
+    tspec = importlib.util.spec_from_file_location(
+        name, Path(sys.argv[1]) / "tools" / (name + ".py"))
+    tools[name] = importlib.util.module_from_spec(tspec)
+    tspec.loader.exec_module(tools[name])
+assert callable(tools["make_unet_corpus_torch"].build_corpus)
+rng = np.random.default_rng(0)
+corpus = (rng.random((4, 32, 32)).astype(np.float16),
+          (rng.random((4, 32, 32)) > 0.5).astype(np.uint8))
+model, losses = unet_train.train_mixture(
+    *corpus, steps=2, batch=4, size=32, log_every=1, features=(4, 8),
+    device="cpu")
+ct_model, ct_losses = ct_unet.train(steps=1, size=(16, 16, 16), log_every=1,
+                                    device="cpu")
+assert np.isfinite(losses + ct_losses).all()
+with tempfile.TemporaryDirectory() as td:
+    unet_train.save_params(model, Path(td) / "u.npz")
+    served = unet.load_model("cpu", Path(td) / "u.npz")
+    mask = unet.segment_image(served, torch.as_tensor(corpus[0][0]).float())
+assert mask.shape == (32, 32)
 leaked = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "flax", "orbax", "shoulder_tpu") and sys.modules[m]]
 assert not leaked, leaked
