@@ -6,14 +6,20 @@ Phases (any failure raises, so the exit code is non-zero):
   1. device: a CUDA card must be present (there is no CPU fallback);
   2. build: compile every kernel of csrc/ into one library with nvcc (one
      nvcc per source, run together) and print ptxas's register, spill and
-     shared-memory lines;
+     shared-memory lines; at the same time, g++ builds the native host
+     ingest (csrc/ingest.cpp, csrc/obb.cpp; io/native.py), and a failed
+     build of either fails the run;
   3. walk kernel vs plain: the standalone walk kernel (csrc/chain_walk.cu)
      against its plain PyTorch version on random loop rows, an empty
      slice, and the real (succ, crossed) rows of bone 0's three slice
      stacks (made by the plain compaction on the card): exact equality of
      n, is_start and order[:n]; both timed at the proximal stack's shape;
   4. pipeline: ingest 8 synthetic humeri (4 left, 4 right) with the port's
-     own ingest and run compute_landmarks_batch at DEFAULT_CONFIG with the
+     own native ingest, bone 0 also through the numpy oracle
+     (load_indexed's arrays and the BoneSpec's vertices, faces, neighbors
+     and face_orig equal, obb_transform and z_bounds within 1e-6; both
+     times printed), and run compute_landmarks_batch at DEFAULT_CONFIG
+     with the
      UNet segmenter on the card; every bone must get its side right and
      land within 3 deg / 3 deg / 1 mm of the constructed neck-shaft
      angle, retroversion and head radius, with no slice overflow; the
@@ -79,24 +85,42 @@ Phases (any failure raises, so the exit code is non-zero):
      warm steps), peak memory and the steps' convolution bounds for both.
      cuDNN's TF32 is off (the package sets it so): float32 convolutions
      run in full float32, the bf16 ones accumulate in float32.
+ 11. accuracy cohorts: tests/test_accuracy_gate.py's healthy and arthritic
+     cohorts of 8 (default_rng(2026), in-memory meshes through the port's
+     spec_from_arrays), one compute_landmarks_batch each at DEFAULT_CONFIG
+     on the card: every side right, both cohorts inside that test's
+     BOUNDS, each healthy bone within 0.75 deg / 0.75 mm of the JAX
+     package's row in tools/eval_accuracy_results.json; the arthritic
+     bones' differences from their rows are printed.
+
+Phases 4 and 7-11 ingest: in each, every bone takes one native ingest
+where it comes from an STL or a soup, and one native OBB search, and the
+numpy oracle runs never; each prints its ingest split (ms per bone of the
+STL read and weld, the soup weld, the OBB, head detection and the
+presort).
 
 The bone STLs live in one temporary directory for the whole run.
 
-The last three lines: a JSON object describing each kernel (launches in
-the main path's run, disagreement with the plain version, times, bound),
-the card's name and power limit as nvidia-smi gives them, and
+The last four lines: a JSON object of the host ingest per phase (counts,
+ms per bone of each stage, the host's CPU, phase 4's native and numpy
+times of bone 0), a JSON object describing each kernel (launches in the
+main path's run, disagreement with the plain version, times, bound), the
+card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import copy
 import dataclasses
+import importlib
 import importlib.util
 import json
 import os
 import subprocess
 import tempfile
 import time
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -131,6 +155,25 @@ CT_IOU = 0.85
 # that + 25 %, the margin the test gave retroversion
 CT_GATES = (("neckshaft", 3.5), ("retroversion", 4.5),
             ("radius_curvature", 1.5), ("neck_z", 1.5))
+# phase 11: tests/test_accuracy_gate.py's cohorts and BOUNDS (degrees /
+# mm), and bench.py's 0.75 gate per healthy bone against the JAX rows
+ACC_PER_COHORT = 8
+ACC_BOUNDS = {
+    "healthy": dict(ns=3.0, rv=4.0, rad=1.5, mean_ns=2.0, mean_rv=2.0),
+    "arthritic": dict(ns=30.0, rv=25.0, rad=3.5, mean_ns=5.0, mean_rv=5.0),
+}
+ACC_GATE = 0.75
+# host-ingest stages timed per call: (stage, module, function)
+INGEST_STAGES = (
+    ("read_weld_adjacency", "io.stl", "load_indexed"),
+    ("weld_adjacency", "io.native", "weld_soup"),
+    ("obb", "host.obb", "oriented_bounds"),
+    ("obb_native_search", "io.native", "min_volume_box_silhouette"),
+    ("head_detection", "io.ingest", "_head_end"),
+    ("presort", "io.ingest", "_presort_faces"),
+    ("spec", "io.ingest", "spec_from_arrays"),
+)
+NUMPY_ORACLE = (("io.stl", "load_indexed_numpy"), ("host.obb", "search_numpy"))
 
 
 def log(msg):
@@ -205,6 +248,89 @@ def cuda_timing(module, name, sink):
         yield sink
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """Within the block, module.name is fn."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def ingest_split(sink):
+    """Within the block, each call of a host-ingest stage (INGEST_STAGES)
+    is timed into sink[stage] (seconds); at the end sink["native"] holds
+    the rise of the native (ingest, OBB) counters and sink["numpy"] the
+    calls of the numpy oracle, which the port's ingest never makes."""
+    from shoulder_tpu_torch.io import native
+
+    def module(name):
+        return importlib.import_module(f"shoulder_tpu_torch.{name}")
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sink.setdefault(key, []).append(time.perf_counter() - t0)
+        return wrapped
+
+    numpy_calls = []
+
+    def flagged(fn, key):
+        def wrapped(*args, **kwargs):
+            numpy_calls.append(key)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    patches = [(module(m), a, timed, key) for key, m, a in INGEST_STAGES]
+    patches += [(module(m), a, flagged, a) for m, a in NUMPY_ORACLE]
+    saved = [(mod, a, getattr(mod, a)) for mod, a, _, _ in patches]
+    for mod, a, wrap, key in patches:
+        setattr(mod, a, wrap(getattr(mod, a), key))
+    before = (native.ingest_count, native.obb_count)
+    try:
+        yield sink
+    finally:
+        for mod, a, fn in saved:
+            setattr(mod, a, fn)
+        sink["native"] = (native.ingest_count - before[0],
+                          native.obb_count - before[1])
+        sink["numpy"] = len(numpy_calls)
+
+
+def ingest_check(phase, sink, smi, n_specs=None):
+    """Raise unless every BoneSpec of the phase (n_specs of them, where
+    given) took one native OBB search, every mesh read from an STL or
+    welded from a soup went native, and the numpy oracle never ran; log
+    and return the ms per bone of each stage."""
+    from shoulder_tpu_torch.io import native
+
+    specs = len(sink.get("spec", []))
+    meshes = (len(sink.get("read_weld_adjacency", []))
+              + len(sink.get("weld_adjacency", [])))
+    if (n_specs is not None and specs != n_specs) \
+            or sink["native"] != (meshes, specs) or sink["numpy"]:
+        raise AssertionError(
+            f"{phase} ingest: {specs} specs (expected {n_specs}), native "
+            f"(ingest, OBB) calls {sink['native']} for {meshes} meshes, "
+            f"{sink['numpy']} numpy-oracle calls")
+    ms = {key: 1e3 * sum(sink.get(key, [])) / specs
+          for key, _, _ in INGEST_STAGES}
+    ms["total"] = ms["read_weld_adjacency"] + ms["weld_adjacency"] + ms["spec"]
+    log(f"{phase} ingest, ms per bone over {specs} bones: "
+        + ", ".join(f"{key} {v:.2f}" for key, v in ms.items())
+        + f"; native (ingest, OBB) calls {sink['native']}, numpy-oracle "
+        f"calls 0 (host {native.host_cpu()}; {smi})")
+    return {"bones": specs, "native_ingest": sink["native"][0],
+            "native_obb": sink["native"][1], "numpy_calls": 0,
+            "ms_per_bone": ms}
 
 
 def bound(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
@@ -663,10 +789,10 @@ def ct_config():
 
 def welded_sizes(tris):
     """(vertices, faces, watertight) of a triangle soup after the weld."""
-    from shoulder_tpu_torch.io import stl
+    from shoulder_tpu_torch.io import native
 
-    verts, faces = stl.weld(np.asarray(tris, np.float64))
-    return verts.shape[0], faces.shape[0], stl.edge_face_adjacency(faces)[1]
+    verts, faces, _, watertight = native.weld_soup(tris)
+    return verts.shape[0], faces.shape[0], watertight
 
 
 def conv_ops(model, run):
@@ -715,14 +841,17 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
     # on the host
     specs, per_volume, seg0 = [], [], None
     for i, (vol, origin, spacing) in enumerate(vols):
-        unet_calls, mt_calls = [], []
+        unet_calls, mt_calls, split = [], [], {}
         with cuda_timing(ct_unet, "apply_volume", unet_calls):
             seg, iso = ct.segment_volume(vol, "unet", device=dev)
         t0 = time.perf_counter()
-        with cuda_timing(marching_tets, "marching_tets", mt_calls):
+        with cuda_timing(marching_tets, "marching_tets", mt_calls), \
+                ingest_split(split):
             spec = ct.volume_to_spec(seg, origin, spacing, iso, config=cfg,
                                      max_tris=CT_MAX_TRIS, device=dev)
         spec_s = time.perf_counter() - t0
+        ingest_ms = ingest_check(f"ct volume {i}", split, smi,
+                                 n_specs=1)["ms_per_bone"]
         (soup, mt_ms), = mt_calls
         count = int(soup.count)
         e0 = torch.cuda.Event(enable_timing=True)
@@ -740,14 +869,17 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
         row = {"unet_ms": unet_calls[0][1], "marching_tets_ms": mt_ms,
                "marching_tets_bound_ms": mt_bound_ms, "d2h_ms": d2h_ms,
                "weld_ingest_s": spec_s - (mt_ms + d2h_ms) / 1e3,
-               "triangles": count, "faces": spec.n_faces,
+               "ingest_ms": ingest_ms, "triangles": count, "faces": spec.n_faces,
                "verts": spec.n_verts, "iou": iou}
         per_volume.append(row)
         log(f"ct volume {i} ({CT_POSES[i][0]}): UNet {row['unet_ms']:.2f} ms, "
             f"marching tets {mt_ms:.2f} ms ({count} triangles, bound "
             f"{mt_bound_ms * 1e3:.2f} us by bytes), "
             f"device-to-host {d2h_ms:.2f} ms, weld + ingest "
-            f"{row['weld_ingest_s']:.2f} s (host), {spec.n_faces} faces / "
+            f"{row['weld_ingest_s']:.3f} s (host: weld + adjacency "
+            f"{ingest_ms['weld_adjacency']:.1f} ms, OBB {ingest_ms['obb']:.1f}"
+            f" ms, head detection {ingest_ms['head_detection']:.1f} ms, "
+            f"presort {ingest_ms['presort']:.1f} ms), {spec.n_faces} faces / "
             f"{spec.n_verts} vertices, watertight {spec.watertight}, "
             f"IoU vs HU > 300 {iou:.4f} ({smi})")
         if not spec.watertight:
@@ -852,8 +984,13 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
                  for name, (a, _) in zip(STACKS, ct_stacks[:3])}
     total_s = time.perf_counter() - t_phase
     log(f"ct phase: {total_s:.1f} s in all ({smi})")
+    ingest = {key: float(np.mean([row["ingest_ms"][key] for row in
+                                  per_volume]))
+              for key in per_volume[0]["ingest_ms"]}
     return {"launches": launches, "worst": worst, "per_stack": per_stack,
             "per_volume": per_volume, "batch_ms": batch_ms,
+            "ingest": {"bones": n, "native_ingest": n, "native_obb": n,
+                       "numpy_calls": 0, "ms_per_bone": ingest},
             "unet_gflop": unet_ops / 1e9, "unet_bound_ms": unet_bound_ms,
             "unet_bound_by": unet_bound_by, "total_s": total_s}
 
@@ -926,10 +1063,13 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi, n_corpus=8,
     chain_walk.launch_count = 0
     slicing.launch_count = 0
     t0 = time.perf_counter()
+    split = {}
     with recording(slicing, "slice_stack", []) as stacks, \
-            cuda_timing(tool, "extract_one", []) as extractions:
+            cuda_timing(tool, "extract_one", []) as extractions, \
+            ingest_split(split):
         images, masks = tool.build_corpus(n_corpus, 0, config=cfg, device=dev)
     corpus_s = time.perf_counter() - t0
+    ingest = ingest_check("corpus", split, smi)
     launches, walk_launches = slicing.launch_count, chain_walk.launch_count
     n_extracted = len(extractions)
     extract_s = sum(ms for _, ms in extractions) / 1e3 / n_extracted
@@ -940,6 +1080,9 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi, n_corpus=8,
         f"{(corpus_s - extract_s * n_extracted) / n_extracted:.2f} s per "
         f"bone; {launches} slice-stack launches, {walk_launches} walk "
         f"launches ({smi})")
+    if ingest["bones"] < n_extracted:
+        raise AssertionError(f"corpus: {ingest['bones']} specs for "
+                             f"{n_extracted} extracted bones")
     if launches != 2 * n_extracted or len(stacks) != launches \
             or walk_launches != 0:
         raise AssertionError(f"corpus: {launches} slice-stack and "
@@ -1108,8 +1251,151 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi, n_corpus=8,
     return {"launches": launches, "worst": worst, "bones": n_extracted,
             "extract_s_per_bone": extract_s, "unet_step": unet_step,
             "ct_unet_step": ct_step, "unet_losses": losses,
-            "card_vs_cpu_gradient": worst_rel,
+            "card_vs_cpu_gradient": worst_rel, "ingest": ingest,
             "ct_losses": ct_losses, "total_s": total_s}
+
+
+def accuracy_cohort(rng, arthritic):
+    """tests/test_accuracy_gate.py's cohort of ACC_PER_COHORT BoneSpecs
+    and truths from `rng` (healthy first, then arthritic, one stream),
+    through the port's spec_from_arrays."""
+    from shoulder_tpu_torch.io import ingest, stl
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+
+    specs, truth, i = [], [], 0
+    while len(specs) < ACC_PER_COHORT:
+        i += 1
+        p = dict(
+            length=float(rng.uniform(250, 310)),
+            head_radius=float(rng.uniform(20, 27)),
+            neck_shaft_deg=float(rng.uniform(125.0, 145.0)),
+            retroversion_deg=float(rng.uniform(15.0, 40.0)),
+            side="left" if rng.random() < 0.5 else "right",
+        )
+        deg = dict(
+            head_flattening=float(rng.uniform(0.12, 0.3)),
+            osteophyte_amp=float(rng.uniform(0.5, 2.5)),
+            surface_noise=float(rng.uniform(0.2, 0.6)),
+        ) if arthritic else {}
+        v, f = synthetic_humerus(rng_transform=rng, **p, **deg)
+        nbr, wt = stl.edge_face_adjacency(f)
+        try:
+            spec = ingest.spec_from_arrays(
+                f"b{i}", v.astype(np.float32), f.astype(np.int32), nbr, wt)
+        except ValueError:
+            continue
+        specs.append(spec)
+        truth.append(p)
+    return specs, truth
+
+
+def accuracy_phase(dev, rf, seg2d, smi):
+    """Phase 11: the accuracy cohorts on the card, against the truth, the
+    accuracy gate's BOUNDS and the JAX package's committed rows."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    t_phase = time.perf_counter()
+    rows_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tools", "eval_accuracy_results.json")
+    with open(rows_path) as fh:
+        jax_rows = json.load(fh)
+    rng = np.random.default_rng(2026)
+    out = {}
+    for name in ("healthy", "arthritic"):
+        split = {}
+        t0 = time.perf_counter()
+        with ingest_split(split):
+            specs, truth = accuracy_cohort(rng, name == "arthritic")
+        ingest_s = time.perf_counter() - t0
+        ingest = ingest_check(f"accuracy {name}", split, smi)
+        t0 = time.perf_counter()
+        lm = B.landmarks_to_numpy(B.compute_landmarks_batch(
+            B.stack_bones(specs, dev), rf, cfg=DEFAULT_CONFIG,
+            seg_model=seg2d))
+        batch_s = time.perf_counter() - t0
+        got = np.stack([lm.neckshaft, lm.retroversion, lm.radius_curvature],
+                       1).astype(np.float64)
+        want = np.array([[t["neck_shaft_deg"], t["retroversion_deg"],
+                          t["head_radius"]] for t in truth])
+        ref = np.array([[r["ns"], r["rv"], r["r"]]
+                        for r in jax_rows[name]["rows"]])
+        err, vs_jax = got - want, got - ref
+        for i, t in enumerate(truth):
+            log(f"accuracy {name} bone {i} ({t['side']}): neck-shaft "
+                f"{got[i, 0]:.3f} (truth {want[i, 0]:.3f}, JAX "
+                f"{ref[i, 0]:.3f}), retroversion {got[i, 1]:.3f} (truth "
+                f"{want[i, 1]:.3f}, JAX {ref[i, 1]:.3f}), radius "
+                f"{got[i, 2]:.3f} (truth {want[i, 2]:.3f}, JAX "
+                f"{ref[i, 2]:.3f}); port - JAX {np.round(vs_jax[i], 4)}")
+        bnd = ACC_BOUNDS[name]
+        summary = {"max_abs_err": np.abs(err).max(0).tolist(),
+                   "mean_err": err.mean(0).tolist(),
+                   "max_abs_vs_jax": np.abs(vs_jax).max(0).tolist(),
+                   "vs_jax": vs_jax.tolist(), "ingest_s": ingest_s,
+                   "batch_s": batch_s, "ingest": ingest}
+        log(f"accuracy {name}: |error| max (ns, rv, radius) "
+            f"{np.round(summary['max_abs_err'], 3)}, mean "
+            f"{np.round(summary['mean_err'], 3)}, |port - JAX| max "
+            f"{np.round(summary['max_abs_vs_jax'], 4)}; ingest "
+            f"{ingest_s:.1f} s, landmark batch {batch_s:.2f} s ({smi})")
+        sides = [bool(x) for x in lm.side_is_left]
+        if sides != [t["side"] == "left" for t in truth]:
+            raise AssertionError(f"accuracy {name}: a side is wrong")
+        limits = (bnd["ns"], bnd["rv"], bnd["rad"])
+        if not (np.isfinite(err).all()
+                and (np.abs(err).max(0) < limits).all()
+                and abs(err[:, 0].mean()) < bnd["mean_ns"]
+                and abs(err[:, 1].mean()) < bnd["mean_rv"]):
+            raise AssertionError(f"accuracy {name}: outside BOUNDS {bnd}")
+        if name == "healthy" and not (np.abs(vs_jax) < ACC_GATE).all():
+            raise AssertionError("accuracy healthy: a bone differs from the "
+                                 "JAX package's row")
+        out[name] = summary
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"accuracy phase: {out['total_s']:.1f} s in all ({smi})")
+    return out
+
+
+def ingest_both_ways(path, spec, smi):
+    """Phase 4's oracle check: bone 0 through the native ingest and through
+    the numpy oracle; both timed."""
+    from shoulder_tpu_torch.host import obb
+    from shoulder_tpu_torch.io import ingest, stl
+
+    t0 = time.perf_counter()
+    got = ingest.load_bone(path)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = stl.load_indexed_numpy(path)
+    with swapped(obb, "oriented_bounds", obb.oriented_bounds_numpy):
+        want = ingest.spec_from_arrays(got.name, *mesh)
+    numpy_s = time.perf_counter() - t0
+    for g, w in zip(stl.load_indexed(path), mesh):
+        if not (np.asarray(g).dtype == np.asarray(w).dtype
+                and np.array_equal(g, w)):
+            raise AssertionError("load_indexed: native and numpy differ")
+    for name in ("vertices", "faces", "neighbors", "face_orig"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"bone 0 {name}: native and numpy differ")
+    if not spec_equal(got, spec):
+        raise AssertionError("bone 0: a second native ingest differs")
+    d_obb = float(np.abs(got.obb_transform - want.obb_transform).max())
+    d_z = float(np.abs(np.subtract(got.z_bounds, want.z_bounds)).max())
+    log(f"ingest bone 0, native {native_s * 1e3:.1f} ms vs numpy oracle "
+        f"{numpy_s * 1e3:.1f} ms: meshes and presorted faces equal, "
+        f"|obb_transform| {d_obb:.3g}, |z_bounds| {d_z:.3g} ({smi})")
+    if not (d_obb < 1e-6 and d_z < 1e-6):
+        raise AssertionError("bone 0: native and numpy boxes differ")
+    return {"bone0_native_ms": native_s * 1e3, "bone0_numpy_ms": numpy_s * 1e3,
+            "bone0_obb_diff": d_obb, "bone0_z_bounds_diff": d_z}
+
+
+def spec_equal(a, b):
+    """Every array and number of two BoneSpecs equal."""
+    return all(np.array_equal(np.asarray(getattr(a, f.name)),
+                              np.asarray(getattr(b, f.name)))
+               for f in dataclasses.fields(a) if f.name != "name")
 
 
 def main(td):
@@ -1122,17 +1408,25 @@ def main(td):
     dev = torch.device("cuda:0")
 
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
-    from shoulder_tpu_torch.io import ingest, stl
+    from shoulder_tpu_torch.io import ingest, native, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
     from shoulder_tpu_torch.models import forest, unet
     from shoulder_tpu_torch.ops import chain_walk, kernels, slicing
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import landmarks as L
 
-    # ---- build
-    t0 = time.perf_counter()
-    so = kernels.build()
-    log(f"build: {so.name} in {time.perf_counter() - t0:.2f} s")
+    # ---- build: the kernels (nvcc) and the native ingest (g++) together
+    def timed_build(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(timed_build, b)
+                  for b in (kernels.build, native.build)]
+        (so, so_s), (native_so, native_s) = (b.result() for b in builds)
+    log(f"build: {so.name} in {so_s:.2f} s, {native_so.name} in "
+        f"{native_s:.2f} s (g++ {' '.join(native.FLAGS)}; host "
+        f"{native.host_cpu()})")
     for line in kernels.build_log().splitlines():
         if "ptxas info" in line or "spill" in line:
             log(f"  {line.strip()}")
@@ -1143,17 +1437,22 @@ def main(td):
             f"{lib.slice_stack_smem_bytes(band, min(band, DEFAULT_CONFIG.slice_compact_k))}"
             f" B dynamic per block")
 
-    # ---- ingest (host) and models
+    # ---- ingest (host, native) and models
     sides = ["left", "right"] * (BATCH // 2)
-    specs, paths = [], []
-    t0 = time.perf_counter()
+    specs, paths, split = [], [], {}
     for i, side in enumerate(sides):
         v, f = synthetic_humerus(side=side,
                                  rng_transform=np.random.default_rng(i))
         paths.append(os.path.join(td, f"bone{i}.stl"))
         stl.write_stl(paths[-1], v, f)
-        specs.append(ingest.load_bone(paths[-1]))
-    log(f"ingest: {BATCH} bones in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with ingest_split(split):
+        specs = [ingest.load_bone(path) for path in paths]
+    log(f"ingest: {BATCH} bones in {time.perf_counter() - t0:.3f} s")
+    ingest_res = {"host_cpu": native.host_cpu(),
+                  "pipeline": ingest_check("pipeline", split, smi,
+                                           n_specs=BATCH)}
+    ingest_res["pipeline"].update(ingest_both_ways(paths[0], specs[0], smi))
     rf = forest.load_params(dev)
     seg = unet.load_model(dev)
     bones = B.stack_bones(specs, dev)
@@ -1258,12 +1557,27 @@ def main(td):
     log(f"throughput: {BATCH / p50:.3f} bones/s, p50 {p50 * 1e3:.1f} "
         f"ms/batch of {BATCH} ({smi})")
 
-    facade = facade_phase(td, paths[0], dev, lm_np, smi)
-    cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
+    with ingest_split(split := {}):
+        facade = facade_phase(td, paths[0], dev, lm_np, smi)
+    ingest_res["facade"] = ingest_check("facade", split, smi, n_specs=3)
+    with ingest_split(split := {}):
+        cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
+    ingest_res["cohort"] = ingest_check("cohort", split, smi, n_specs=BATCH)
     ct_res = ct_phase(dev, rf, seg, smi)
     ct_worst = ct_res["worst"]
+    ingest_res["ct"] = ct_res["ingest"]
     train_res = train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi)
     train_worst = train_res["worst"]
+    ingest_res["corpus"] = train_res["ingest"]
+    acc = accuracy_phase(dev, rf, seg, smi)
+    ingest_res["accuracy"] = {name: acc[name]["ingest"]
+                              for name in ("healthy", "arthritic")}
+
+    print(json.dumps({"ingest": ingest_res, "accuracy": {
+        name: {key: acc[name][key] for key in
+               ("max_abs_err", "mean_err", "max_abs_vs_jax", "vs_jax",
+                "ingest_s", "batch_s")}
+        for name in ("healthy", "arthritic")}}))
 
     prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{

@@ -10,14 +10,19 @@ ascending (x smallest, z largest) — the reference's downstream code depends
 on z being the long axis of the humerus (mesh.py:85-117).
 
 OBB runs once per bone at ingest on the host; it is not on the device hot
-path.  This is the numpy path of shoulder_tpu/host/obb.py without its
-optional native search, which computes the same box.
+path.  `oriented_bounds` searches the candidates in the port's native
+library (io/native.py, csrc/obb.cpp), as shoulder_tpu/host/obb.py does with
+its own: the same box, bit for bit, on the same hull.  The numpy loop
+(`search_numpy`, `oriented_bounds_numpy`) is the oracle the tests hold it
+against.
 """
 
 from __future__ import annotations
 
 import numpy as np
 from scipy.spatial import ConvexHull
+
+from shoulder_tpu_torch.io import native
 
 
 def _min_area_rect_2d(pts2d: np.ndarray):
@@ -49,19 +54,18 @@ def _min_area_rect_2d(pts2d: np.ndarray):
     )
 
 
-def oriented_bounds(vertices: np.ndarray):
-    """Minimum-volume OBB.
-
-    Returns (to_obb (4,4), extents (3,)): `to_obb` maps mesh coordinates to
-    the OBB frame (centered, axis-aligned, extents ascending x<=y<=z,
-    right-handed).
-    """
+def _hull(vertices: np.ndarray):
+    """(hull, hull points, candidate normals): qhull's hull and its facet
+    normals, deduplicated (qhull triangulates coplanar faces)."""
     hull = ConvexHull(vertices)
     hp = vertices[hull.vertices]
-    normals = hull.equations[:, :3]
-    # dedupe face normals (qhull triangulates coplanar faces)
-    normals = np.unique(np.round(normals, 6), axis=0)
+    normals = np.unique(np.round(hull.equations[:, :3], 6), axis=0)
+    return hull, hp, normals
 
+
+def search_numpy(hp: np.ndarray, normals: np.ndarray):
+    """(axes rows world -> box, lo, hi) of the least-volume box over the
+    candidate normals: the numpy loop, the native search's oracle."""
     best = None
     for n in normals:
         n = n / np.linalg.norm(n)
@@ -82,7 +86,39 @@ def oriented_bounds(vertices: np.ndarray):
             lo = np.array([umin, vmin, h.min()])
             hi = np.array([umax, vmax, h.max()])
             best = (volume, axes, lo, hi)
-    _, axes, lo, hi = best
+    return best[1:]
+
+
+def search_native(hp: np.ndarray, normals: np.ndarray, hull):
+    """The same search in the native library, each candidate's 2D hull
+    taken as the 3D hull's silhouette (shoulder_tpu/host/obb.py::
+    _native_search): the simplices are remapped to hull-point indices and
+    wound CCW seen from outside (qhull's winding is arbitrary; the outward
+    direction is authoritative in `equations`).  Where no silhouette
+    candidate gives a box, the plain native search runs."""
+    inv = np.full(hull.points.shape[0], -1, np.int64)
+    inv[hull.vertices] = np.arange(hull.vertices.shape[0])
+    simp = inv[hull.simplices]
+    eqs = hull.equations[:, :3]
+    tri = hp[simp]
+    winding = np.einsum(
+        "ij,ij->i",
+        np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]),
+        eqs,
+    )
+    flip = winding < 0
+    simp[flip] = simp[flip][:, [0, 2, 1]]
+    nbr = np.array(hull.neighbors)
+    nbr[flip] = nbr[flip][:, [0, 2, 1]]
+    res = native.min_volume_box_silhouette(hp, simp, nbr, eqs, normals)
+    if res is None:
+        res = native.min_volume_box(hp, normals)
+    if res is None:
+        raise ValueError("no candidate normal gives a box")
+    return res
+
+
+def _to_obb(axes, lo, hi):
     extents = hi - lo
     center_obb = (lo + hi) / 2.0
 
@@ -99,3 +135,20 @@ def oriented_bounds(vertices: np.ndarray):
     to_obb[:3, :3] = axes
     to_obb[:3, 3] = -center_obb
     return to_obb, extents
+
+
+def oriented_bounds(vertices: np.ndarray):
+    """Minimum-volume OBB (native search).
+
+    Returns (to_obb (4,4), extents (3,)): `to_obb` maps mesh coordinates to
+    the OBB frame (centered, axis-aligned, extents ascending x<=y<=z,
+    right-handed).
+    """
+    hull, hp, normals = _hull(vertices)
+    return _to_obb(*search_native(hp, normals, hull))
+
+
+def oriented_bounds_numpy(vertices: np.ndarray):
+    """oriented_bounds by the numpy loop (the oracle)."""
+    _, hp, normals = _hull(vertices)
+    return _to_obb(*search_numpy(hp, normals))

@@ -10,7 +10,11 @@ Covers the reference's MeshLoader/FullObb/ProxObb layer
     (mesh.py:133-192).
 
 Everything here is one-time per bone on the host; the result is a BoneSpec
-of fixed-shape arrays ready to batch and ship to the device pipeline.
+of fixed-shape arrays ready to batch and ship to the device pipeline.  The
+STL read, weld and adjacency (io/stl.load_indexed) and the OBB search
+(host/obb.oriented_bounds) run in the port's native library
+(io/native.py); head detection (`_head_end`) and the presort
+(`_presort_faces`) are numpy.
 """
 
 from __future__ import annotations
@@ -125,34 +129,10 @@ def _consecutive(arr):
     )
 
 
-def load_bone(
-    path,
-    proximal: bool = False,
-    config: PipelineConfig = DEFAULT_CONFIG,
-) -> BoneSpec:
-    path = Path(path)
-    verts_ct, faces, neighbors, watertight = stl.load_indexed(path)
-    return spec_from_arrays(
-        path.stem, verts_ct, faces, neighbors, watertight,
-        proximal=proximal, config=config,
-    )
-
-
-def spec_from_arrays(
-    name: str,
-    verts_ct,
-    faces,
-    neighbors,
-    watertight: bool,
-    proximal: bool = False,
-    config: PipelineConfig = DEFAULT_CONFIG,
-) -> BoneSpec:
-    """Build a BoneSpec from an already-indexed mesh (STL path, CT surface
-    extraction, or any in-memory mesh)."""
-    to_obb, extents = obb_host.oriented_bounds(verts_ct)
-    verts = verts_ct @ to_obb[:3, :3].T + to_obb[:3, 3]
-    z_min, z_max = float(verts[:, 2].min()), float(verts[:, 2].max())
-
+def _head_end(verts, faces, neighbors, z_min, z_max, proximal, config):
+    """(flip, cutoff_pcts): whether the humeral head lies at -z in the OBB
+    frame (numpy cross-sections of the mesh, host/slicing_np.py), and the
+    canal window."""
     cutoff_pcts = tuple(config.full_obb_cutoff_pcts)
     if not proximal:
         # head-end detection via circle-fit residual (mesh.py:89-117)
@@ -184,7 +164,39 @@ def spec_from_arrays(
         grad = np.gradient(scipy.signal.savgol_filter(z_area, 3, 1))
         canal_zs = _consecutive(np.flatnonzero(grad < config.prox_grad_threshold))
         cutoff_pcts = (canal_zs[0] / n_st, canal_zs[-1] / n_st)
+    return flip, cutoff_pcts
 
+
+def load_bone(
+    path,
+    proximal: bool = False,
+    config: PipelineConfig = DEFAULT_CONFIG,
+) -> BoneSpec:
+    path = Path(path)
+    verts_ct, faces, neighbors, watertight = stl.load_indexed(path)
+    return spec_from_arrays(
+        path.stem, verts_ct, faces, neighbors, watertight,
+        proximal=proximal, config=config,
+    )
+
+
+def spec_from_arrays(
+    name: str,
+    verts_ct,
+    faces,
+    neighbors,
+    watertight: bool,
+    proximal: bool = False,
+    config: PipelineConfig = DEFAULT_CONFIG,
+) -> BoneSpec:
+    """Build a BoneSpec from an already-indexed mesh (STL path, CT surface
+    extraction, or any in-memory mesh)."""
+    to_obb, extents = obb_host.oriented_bounds(verts_ct)
+    verts = verts_ct @ to_obb[:3, :3].T + to_obb[:3, 3]
+    z_min, z_max = float(verts[:, 2].min()), float(verts[:, 2].max())
+
+    flip, cutoff_pcts = _head_end(verts, faces, neighbors, z_min, z_max,
+                                  proximal, config)
     if flip:
         to_obb = _FLIP @ to_obb
         verts = verts_ct @ to_obb[:3, :3].T + to_obb[:3, 3]

@@ -3,6 +3,10 @@
 A copy of shoulder_tpu/io/mesh.py: the mesh the facade exposes
 (`Bone.mesh`), sectioned and clipped by the osteotomy and drawn by the
 plots.  Not a device type: bones on the device are BoneTensors.
+
+The cuts (`slice_plane`, `cap_boundaries`) weld float64 soups of
+transformed or interpolated points, so they stay on numpy's `stl.weld`:
+the native `weld_soup` (io/native.py) takes float32 triangles only.
 """
 
 from __future__ import annotations

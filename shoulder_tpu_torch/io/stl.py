@@ -4,6 +4,11 @@ Replaces the reference's trimesh.load_mesh (reference mesh.py:24).  Handles
 binary and ASCII STL, welds duplicate vertices into an indexed (V,3)/(F,3)
 representation, and checks watertightness (every edge shared by exactly two
 faces), mirroring the reference's is_watertight warning (mesh.py:25-27).
+
+`load_indexed` reads binary STL through the port's native ingest
+(io/native.py), as the JAX package does with its own; the numpy functions
+here (`load_indexed_numpy`, `weld`, `edge_face_adjacency`) are its oracle
+and read ASCII STL.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ import warnings
 from pathlib import Path
 
 import numpy as np
+
+from shoulder_tpu_torch.io import native
 
 
 def _parse_binary(data: bytes):
@@ -42,17 +49,23 @@ def _parse_ascii(text: str):
     return tri.reshape(-1, 3, 3)
 
 
+def _is_ascii(data: bytes) -> bool:
+    """A file is ASCII STL iff it starts with 'solid' AND is not a valid
+    binary layout (some binary exporters also write 'solid' in the
+    header)."""
+    if data[:5].lower() != b"solid":
+        return False
+    if len(data) >= 84:
+        (n_tri,) = struct.unpack_from("<I", data, 80)
+        if 84 + n_tri * 50 == len(data):
+            return False
+    return True
+
+
 def read_stl(path) -> np.ndarray:
     """Read an STL file; returns triangle soup of shape (F, 3, 3)."""
-    path = Path(path)
-    data = path.read_bytes()
-    # a file is ASCII STL iff it starts with 'solid' AND is not a valid
-    # binary layout (some binary exporters also write 'solid' in the header)
-    if data[:5].lower() == b"solid":
-        if len(data) >= 84:
-            (n_tri,) = struct.unpack_from("<I", data, 80)
-            if 84 + n_tri * 50 == len(data):
-                return _parse_binary(data)
+    data = Path(path).read_bytes()
+    if _is_ascii(data):
         return _parse_ascii(data.decode("ascii", errors="ignore"))
     return _parse_binary(data)
 
@@ -121,15 +134,28 @@ def edge_face_adjacency(faces: np.ndarray):
     return neighbors.reshape(n_faces, 3), watertight
 
 
-def load_indexed(path, warn_not_watertight: bool = True):
-    """Load an STL into (vertices, faces, neighbors, watertight).
-
-    The numpy path only: the JAX package's optional native C++ loader is
-    bit-identical to it and is not carried over.
-    """
+def load_indexed_numpy(path, warn_not_watertight: bool = True):
+    """Load an STL into (vertices, faces, neighbors, watertight) with
+    numpy: the native ingest's oracle, and the reader of ASCII STL."""
     tri = read_stl(path)
     vertices, faces = weld(tri)
     neighbors, watertight = edge_face_adjacency(faces)
+    if warn_not_watertight and not watertight:
+        warnings.warn(f"{Path(path).stem} is not watertight!")
+    return vertices, faces, neighbors, watertight
+
+
+def load_indexed(path, warn_not_watertight: bool = True):
+    """Load an STL into (vertices, faces, neighbors, watertight).
+
+    Binary STL goes through the native ingest (io/native.py), which gives
+    what the JAX package's native path gives, bit for bit; ASCII STL is
+    read by `load_indexed_numpy`.
+    """
+    data = Path(path).read_bytes()
+    if _is_ascii(data):
+        return load_indexed_numpy(path, warn_not_watertight)
+    vertices, faces, neighbors, watertight = native.ingest_stl(data)
     if warn_not_watertight and not watertight:
         warnings.warn(f"{Path(path).stem} is not watertight!")
     return vertices, faces, neighbors, watertight

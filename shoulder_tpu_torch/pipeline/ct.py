@@ -7,9 +7,10 @@ Port of shoulder_tpu/pipeline/ct.py:
      the 3D UNet (models/ct_unet.py) whose logits are cut at 0,
   2. extract the surface with marching tetrahedra (ops/marching_tets.py)
      on the same device, then copy the valid triangles to the host once,
-  3. weld to an indexed mesh, build a BoneSpec on the host (io/stl.py,
-     io/ingest.py, as in the JAX package), and run the landmark
-     pipeline (pipeline/batch.py).
+  3. weld to an indexed mesh on the host with the native ingest
+     (io/native.py `weld_soup`: what the JAX package's numpy `stl.weld` and
+     `stl.edge_face_adjacency` give, bit for bit), build a BoneSpec
+     (io/ingest.py), and run the landmark pipeline (pipeline/batch.py).
 
 A batch of volumes is `[volume_to_spec(...)]` -> `batch.stack_bones` ->
 `batch.compute_landmarks_batch`, as tools/eval_ct_pitch.py runs it.
@@ -30,7 +31,7 @@ import torch
 
 from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from shoulder_tpu_torch.io import ingest as ingest_mod
-from shoulder_tpu_torch.io import stl as stl_mod
+from shoulder_tpu_torch.io import native
 from shoulder_tpu_torch.ops import marching_tets
 
 
@@ -136,7 +137,7 @@ def volume_to_spec(
     device="cuda",
 ):
     """Volume -> marching-tets surface on `device` -> one device-to-host
-    copy of the valid triangles -> welded BoneSpec (host)."""
+    copy of the valid triangles -> native weld -> BoneSpec (host)."""
     from shoulder_tpu_torch.bone import _device
 
     vol = torch.as_tensor(volume, dtype=torch.float32, device=_device(device))
@@ -148,9 +149,8 @@ def volume_to_spec(
         max_tris=max_tris,
     )
     n = int(soup.count)
-    tris = soup.triangles[:n].cpu().numpy().astype(np.float64)
-    verts, faces = stl_mod.weld(tris)
-    neighbors, watertight = stl_mod.edge_face_adjacency(faces)
+    verts, faces, neighbors, watertight = native.weld_soup(
+        soup.triangles[:n].cpu().numpy())
     return ingest_mod.spec_from_arrays(
         "ct_volume", verts, faces, neighbors, watertight, config=config
     )

@@ -205,23 +205,3 @@ def test_segment_volume_without_weights_raises(monkeypatch, coarse_ct,
         ct.segment_volume(coarse_ct[0], "unet", device="cpu")
     seg, iso = ct.segment_volume(coarse_ct[0], device="cpu")
     assert iso == 300.0 and torch.equal(seg, torch.as_tensor(coarse_ct[0]))
-
-
-@pytest.mark.cuda
-def test_ct_path_card_matches_cpu(coarse_ct):
-    """The card's marching tets and UNet against the port's CPU ones."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the card's half of the comparison")
-    vol, origin, spacing = coarse_ct
-    args = (300.0, tuple(map(float, origin)), tuple(map(float, spacing)))
-    want = marching_tets.marching_tets(torch.as_tensor(vol), *args)
-    got = marching_tets.marching_tets(torch.as_tensor(vol, device="cuda"),
-                                      *args)
-    n = int(want.count)
-    assert int(got.count) == n
-    assert float((got.triangles.cpu() - want.triangles).abs().max()) <= TOL_MM
-    assert _weld(got.triangles[:n].cpu().numpy()) == _weld(
-        want.triangles[:n].numpy())
-    seg_cpu, _ = ct.segment_volume(vol, "unet", device="cpu")
-    seg_card, _ = ct.segment_volume(vol, "unet", device="cuda")
-    assert ((seg_card.cpu() > 0) == (seg_cpu > 0)).float().mean() >= 0.999

@@ -249,25 +249,3 @@ def test_port_forest_npz_equals_the_jax_package_file():
         for name in ref.files:
             assert mine[name].dtype == ref[name].dtype, name
             assert np.array_equal(mine[name], ref[name]), name
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("stack", STACKS)
-def test_cuda_kernel_matches_plain_slice_stack(geoms, stack):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the slice-stack kernel runs only there")
-    v_obb, _jsg, tsg, spec = geoms
-    sg = tsl.SortedGeom(*(x.cuda() for x in tsg))
-    sset = getattr(CFG, stack)
-    zs = torch.as_tensor(_edge_planes(v_obb, spec.n_verts)).cuda()
-    before = tsl.launch_count
-    got = tsl.slice_stack(sg, zs, sset.interp_num, sset.band,
-                          CFG.slice_compact_k)
-    torch.cuda.synchronize()
-    assert tsl.launch_count == before + 1
-    band = min(sset.band, sg.z_key.shape[0])
-    want = tsl.slice_stack_plain(sg, zs, sset.interp_num, band,
-                                 min(CFG.slice_compact_k, band))
-    got, want = (tsl.SliceStack(*(x.cpu().numpy() for x in s))
-                 for s in (got, want))
-    _assert_close(want, got)

@@ -92,18 +92,3 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert chain_walk.launch_count == before
     with pytest.raises(ValueError):
         chain_walk.chain_walk_marked(succ, crossed[:, :-1])
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_plain_walk():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the walk kernel runs only there")
-    succ, crossed = (torch.as_tensor(a).cuda()
-                     for a in _random_rows(3, k=384, n_rows=600))
-    before = chain_walk.launch_count
-    got = chain_walk.chain_walk_marked(succ, crossed)
-    torch.cuda.synchronize()
-    assert chain_walk.launch_count == before + 1
-    want = chain_walk.chain_walk_plain(succ, crossed)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
