@@ -19,24 +19,34 @@ Phases (any failure raises, so the exit code is non-zero):
      (load_indexed's arrays and the BoneSpec's vertices, faces, neighbors
      and face_orig equal, obb_transform and z_bounds within 1e-6; both
      times printed), and run compute_landmarks_batch at DEFAULT_CONFIG
-     with the
-     UNet segmenter on the card; every bone must get its side right and
-     land within 3 deg / 3 deg / 1 mm of the constructed neck-shaft
-     angle, retroversion and head radius, with no slice overflow; the
-     fused slice-stack kernel must have been launched exactly once per
-     stack (24), the standalone walk never, and the plain compaction only
-     for the surgical-neck plane (8); one bone runs again on the CPU
-     (plain composition) and must agree within 0.75 deg / 0.75 mm,
-     bench.py's gate;
-  5. slice-stack kernel vs plain: every stack of phase 4 (3 per bone, 8
-     bones) against the plain composition on the card, plus
+     with the UNet segmenter on the card, one program for the batch;
+     every bone must get its side right and land within 3 deg / 3 deg /
+     1 mm of the constructed neck-shaft angle, retroversion and head
+     radius, with no slice overflow; the fused slice-stack kernel must
+     have been launched exactly once per stack for the whole batch (3),
+     the standalone walk never, and the plain compaction once, for the
+     batch's surgical-neck planes; one bone runs again on the CPU (plain
+     composition) and must agree within 0.75 deg / 0.75 mm, bench.py's
+     gate;
+  5. slice-stack kernel vs plain: each of phase 4's three batched
+     launches equals the launches of its 8 bones one by one, bit for bit,
+     and agrees with the batched plain composition on the card, as do
      bone 0's edge planes (above and below the bone, at exact vertex
      heights) and a k = 64 call that overflows: overflow and open_edges
      equal, contours and centroids within 1e-3 mm, areas within 0.01
      mm^2; the rows whose best loop differs are counted; kernel and plain
-     times per stack, and each stage's time inside a block from the
-     kernel's timed build;
-  6. timing: 5 warm batches of 8, synchronized;
+     times per stack of the batch (and the kernel's per stack of bone 0
+     alone), and each stage's time inside a block from the kernel's
+     timed build;
+  6. timing: a batch of 1 and a batch of 8 at DEFAULT_CONFIG with the
+     UNet, each profiled once (kernel launches: the profiler's
+     cudaLaunchKernel and every launch API call, plus the slice-stack
+     launches it does not count; device busy time and idle share),
+     once under torch.cuda.set_sync_debug_mode("warn") (synchronizing
+     calls counted), and 5 warm synchronized runs (p50, and the peak
+     memory above what was resident before them); launches per batch of
+     8 at most 1.25x a batch of 1's, synchronizing calls no more; the
+     largest batch the card holds, linear in B from the two peaks;
   7. facade: the README flow through shoulder_tpu_torch.Humerus on the card
      (canal on z through the origin, metrics equal to phase 4's bone 0
      within 0.05 deg / 0.05 mm), the osteotomy probes, a plot, the three
@@ -44,7 +54,7 @@ Phases (any failure raises, so the exit code is non-zero):
      the CPU; slice-stack launches 3 / 3 / 2, walk launches 0;
   8. cohort: process_cohort over the 8 STLs in batches of 4 (two batches,
      one prefetch); each bone equal to phase 4 within 0.05 deg / 0.05 mm;
-     24 slice-stack launches, no walk launch.
+     6 slice-stack launches (3 per batch), no walk launch.
   9. CT: four 1.0 mm CT volumes (320 x 144 x 144, 2 left and 2 right)
      from pipeline.ct.synth_ct_volume through the 3D UNet, marching tets
      and the weld on the card and host, then one compute_landmarks_batch
@@ -53,13 +63,14 @@ Phases (any failure raises, so the exit code is non-zero):
      UNet's mask against the HU threshold at IoU >= 0.85, each bone within
      3.5 deg / 4.5 deg / 1.5 mm / 1.5 mm (neck-shaft, retroversion,
      radius, neck_z) of the direct mesh of the same generator bone
-     (CT_GATES), exactly 12
-     slice-stack launches and no walk launch; the card's marching tets
-     against the CPU's on one threshold surface (equal count and weld,
-     1e-4 mm), the card's UNet against the CPU's (mask agreement >=
-     99.9 %), and all 12 stacks against the plain composition with
-     phase 5's tolerances; per-volume times with the UNet's and marching
-     tets' bounds, and the kernel's times at the CT sizes.
+     (CT_GATES), exactly 3 slice-stack launches (one per stack for the
+     batch) and no walk launch; the card's marching tets against the
+     CPU's on one threshold surface (equal count and weld, 1e-4 mm), the
+     card's UNet against the CPU's (mask agreement >= 99.9 %), and each
+     of the 3 batched launches equal to its 4 bones' own launches bit for
+     bit and to the batched plain composition with phase 5's tolerances;
+     per-volume times with the UNet's and marching tets' bounds, and the
+     kernel's times at the CT sizes.
  10. training: a corpus of 8 random synthetic humeri by
      tools/make_unet_corpus_torch.build_corpus at DEFAULT_CONFIG on the
      card (exactly 2 slice-stack launches per extracted bone, no walk
@@ -78,7 +89,8 @@ Phases (any failure raises, so the exit code is non-zero):
      held to a cosine of 0.5 with its float32 one), then save_params -> load_model -> segment_image on
      phase 4's bone 0 image equal to the in-memory model's mask, and a
      zero-step save of the shipped weights giving phase 4's bone 0 its
-     metrics again, exactly; the CT UNet: 10 `train` steps at 64 x 48 x 48 from
+     metrics of its own run in phase 4 again, exactly; the CT UNet: 10
+     `train` steps at 64 x 48 x 48 from
      the shipped weights and 10 from random ones (losses finite, the
      second run's last below its first), the trained weights served by
      `apply_volume` after a save; ms per training step (CUDA events, 10
@@ -92,6 +104,11 @@ Phases (any failure raises, so the exit code is non-zero):
      BOUNDS, each healthy bone within 0.75 deg / 0.75 mm of the JAX
      package's row in tools/eval_accuracy_results.json; the arthritic
      bones' differences from their rows are printed.
+ 12. mesh: parallel.mesh.bone_mesh() over the card (one device):
+     sharded_landmark_fn on phase 4's batch equal to phase 4 exactly,
+     with 3 slice-stack launches; cohort_stats of it against numpy's
+     nanmean / nanstd; process_cohort(device_mesh=...) over the 8 STLs in
+     batches of 4 equal to phase 8's results exactly.
 
 Phases 4 and 7-11 ingest: in each, every bone takes one native ingest
 where it comes from an STL or a soup, and one native OBB search, and the
@@ -119,6 +136,7 @@ import os
 import subprocess
 import tempfile
 import time
+import warnings
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -354,7 +372,7 @@ def stack_args(args):
     """(sg, zs, interp_num, band, k) of a recorded slice_stack call, with
     band and k clamped as slice_stack clamps them."""
     sg, zs, interp_num, band, compact_k = args[:5]
-    band = min(band, sg.z_key.shape[0])
+    band = min(band, sg.z_key.shape[-1])
     return sg, zs, interp_num, band, min(compact_k, band)
 
 
@@ -382,9 +400,15 @@ def slice_stack_work(sg, zs, interp_num, band, k):
     the binary searches touch and each cummax_z_max entry the overflow
     tests read (at lo - 1, lo > 0) read once, one z per plane; every
     output written once.  Operations: about 40 per kept face (segment,
-    moments, arc length) and 20 per sample."""
+    moments, arc length) and 20 per sample.  A batch's (zs (B, S)) is the
+    sum of its bones' (each reads only its own faces)."""
     from shoulder_tpu_torch.ops import slicing
 
+    if zs.dim() == 2:
+        return tuple(map(sum, zip(*(
+            slice_stack_work(slicing.SortedGeom(*(x[b] for x in sg)), zs[b],
+                             interp_num, band, k)
+            for b in range(zs.shape[0])))))
     n_faces, n_planes = sg.z_key.shape[0], zs.shape[0]
     los, _starts, _over = slicing._window_starts(sg, zs, band)
     cummax_read = int(torch.unique(los[los > 0]).numel())
@@ -413,7 +437,7 @@ def stack_disagreement(got, want):
             and torch.equal(got.open_edges, want.open_edges)):
         raise AssertionError("overflow / open_edges differ")
     da = (got.areas - want.areas).abs()
-    dc = (got.centroids - want.centroids).abs().amax(dim=1)
+    dc = (got.centroids - want.centroids).abs().amax(dim=-1)
     return {
         "contour_mm": float((got.contours - want.contours).abs().max()),
         "centroid_mm": float(dc.max()),
@@ -486,7 +510,7 @@ def phase4_bone(lm_np, i):
 
 
 def facade_phase(td, path, dev, lm_np, smi):
-    """Phase 6: the README flow through the public API on the card."""
+    """Phase 7: the README flow through the public API on the card."""
     import shoulder_tpu_torch as stt
     from shoulder_tpu_torch.io import stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
@@ -581,28 +605,30 @@ def facade_phase(td, path, dev, lm_np, smi):
     return counts
 
 
-def cohort_phase(paths, dev, lm_np, sides, smi):
-    """Phase 7: process_cohort over the STLs, ingest included."""
+def cohort_phase(paths, dev, lm_np, sides, smi, batch=4):
+    """Phase 8: process_cohort over the STLs, ingest included; returns
+    (slice-stack launches, the result dicts)."""
     from shoulder_tpu_torch import cohort
     from shoulder_tpu_torch.ops import chain_walk, slicing
 
     chain_walk.launch_count = 0
     slicing.launch_count = 0
     t0 = time.perf_counter()
-    res = cohort.process_cohort(paths, device=dev, batch_size=4)
+    res = cohort.process_cohort(paths, device=dev, batch_size=batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = slicing.launch_count
+    want = 3 * -(-len(paths) // batch)  # 3 per batch
     log(f"cohort: {len(res)} bones in {wall:.2f} s, "
-        f"{len(res) / wall:.3f} bones/s with ingest, batch 4, "
+        f"{len(res) / wall:.3f} bones/s with ingest, batch {batch}, "
         f"{launches} slice-stack launches, {chain_walk.launch_count} walk "
         f"launches ({smi})")
     if len(res) != len(paths):
         raise AssertionError("cohort lost bones")
-    if launches != 3 * len(paths) or chain_walk.launch_count != 0:
+    if launches != want or chain_walk.launch_count != 0:
         raise AssertionError(f"cohort: {launches} slice-stack and "
                              f"{chain_walk.launch_count} walk launches, "
-                             f"expected {3 * len(paths)} and 0")
+                             f"expected {want} and 0")
     for i, r in enumerate(res):
         got = (r["side"], r["neckshaft_deg"], r["retroversion_deg"],
                r["radius_curvature_mm"])
@@ -611,7 +637,7 @@ def cohort_phase(paths, dev, lm_np, sides, smi):
         gate_like(f"cohort bone {i}", got, phase4_bone(lm_np, i))
     summary = cohort.cohort_summary(res)
     log(f"cohort summary: {summary}")
-    return launches
+    return launches, res
 
 
 def walk_phase(dev, bone0_stacks, smi):
@@ -630,8 +656,8 @@ def walk_phase(dev, bone0_stacks, smi):
     for name, (args, _) in zip(STACKS, bone0_stacks):
         sg, zs, _interp, band, kk = stack_args(args)
         crossed, _s, _e, succ, *_ = slicing.compact_stack(sg, zs, band, kk)
-        cases[name] = (succ.to(torch.int32).contiguous(),
-                       crossed.to(torch.int32).contiguous())
+        cases[name] = (succ.reshape(-1, kk).to(torch.int32).contiguous(),
+                       crossed.reshape(-1, kk).to(torch.int32).contiguous())
     max_err = 0
     for name, (succ, crossed) in cases.items():
         got = chain_walk.chain_walk_marked(succ, crossed)
@@ -697,8 +723,38 @@ def check_stacks(cases):
     return worst, d
 
 
-def time_stack(name, args, smi):
-    """Kernel and plain times of one stack, its bound from these inputs,
+def same_tensor(got, want):
+    """Equal shapes and values, NaN equal to NaN."""
+    if got.is_floating_point():
+        return (torch.equal(got.isnan(), want.isnan())
+                and torch.equal(got.nan_to_num(), want.nan_to_num()))
+    return torch.equal(got, want)
+
+
+def same_stack(got, want):
+    """Every field of two SliceStacks (or Landmarks) equal."""
+    return all(same_tensor(g, w) for g, w in zip(got, want))
+
+
+def per_bone_launches(name, args, got):
+    """Raise unless the batched launch `got` over zs (B, S) equals the
+    kernel launched on each bone alone, bit for bit; returns B."""
+    from shoulder_tpu_torch.ops import slicing
+
+    sg, zs, interp_num, band, k = args
+    for b in range(zs.shape[0]):
+        one = slicing.slice_stack_kernel(
+            slicing.SortedGeom(*(x[b] for x in sg)), zs[b], interp_num, band,
+            k)
+        if not same_stack(slicing.SliceStack(*(x[b] for x in got)), one):
+            raise AssertionError(f"slice-stack {name}: bone {b} of the "
+                                 f"batched launch differs from its own launch")
+    torch.cuda.synchronize()
+    return zs.shape[0]
+
+
+def time_stack(name, args, smi, plain_too=True):
+    """Kernel (and plain) times of one stack, its bound from these inputs,
     its shared memory and blocks per SM, and each stage's time inside a
     block."""
     from shoulder_tpu_torch.ops import kernels, slicing
@@ -706,26 +762,32 @@ def time_stack(name, args, smi):
     plain = slicing.slice_stack_plain
     a = stack_args(args)
     lib = kernels.library()
-    res = {"planes": int(a[1].shape[0]), "interp": a[2], "band": a[3],
-           "k": a[4], "smem_bytes": int(lib.slice_stack_smem_bytes(a[3], a[4])),
+    bones = a[1].shape[0] if a[1].dim() == 2 else 1
+    res = {"bones": bones, "planes": int(a[1].shape[-1]), "interp": a[2],
+           "band": a[3], "k": a[4],
+           "smem_bytes": int(lib.slice_stack_smem_bytes(a[3], a[4])),
            "blocks_per_sm": int(lib.slice_stack_blocks_per_sm(
                a[3], a[4], a[1].device.index or 0))}
     res["ms"] = timed_cuda(lambda: slicing.slice_stack_kernel(*a), 50)
-    res["plain_ms"] = timed_cuda(lambda: plain(*a), 3)
-    t0 = time.perf_counter()
-    plain(*a)
-    torch.cuda.synchronize()
-    res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
     n_bytes, n_ops = slice_stack_work(*a)
     res["bytes"], res["ops"] = n_bytes, n_ops
     res["bound_ms"], res["bound_by"] = bound(n_bytes, n_ops)
-    log(f"slice-stack time, {name} stack {res['planes']} x "
+    plain_txt = ""
+    if plain_too:
+        res["plain_ms"] = timed_cuda(lambda: plain(*a), 3)
+        t0 = time.perf_counter()
+        plain(*a)
+        torch.cuda.synchronize()
+        res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        plain_txt = (f", plain {res['plain_ms']:.2f} ms (host wall "
+                     f"{res['plain_wall_ms']:.2f} ms)")
+    log(f"slice-stack time, {name} stack {bones} x {res['planes']} x "
         f"{res['interp']} (band {res['band']}, k {res['k']}, "
         f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks per "
-        f"SM): kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms "
-        f"(host wall {res['plain_wall_ms']:.2f} ms), bound "
+        f"SM): kernel {res['ms']:.4f} ms{plain_txt}, bound "
         f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} "
-        f"({n_bytes} B) ({smi})")
+        f"({n_bytes} B), {100 * res['bound_ms'] / res['ms']:.3g} % of it "
+        f"({smi})")
     res.update(stage_breakdown(a))
     log(f"slice-stack stages, {name} stack, timed build "
         f"{res['timed_ms']:.4f} ms, SM clock {res['sm_ghz']:.3f} GHz, "
@@ -737,11 +799,19 @@ def time_stack(name, args, smi):
 
 
 def slice_kernel_phase(main_stacks, bone0_stacks, smi):
-    """Phase 5: the fused slice-stack kernel against the plain composition
-    on the card, and both timed per stack."""
-    cases = [(f"bone {i // 3} {STACKS[i % 3]}", stack_args(args), out)
-             for i, (args, out) in enumerate(main_stacks)]
+    """Phase 5: each batched launch of the fused slice-stack kernel against
+    its bones' own launches and the batched plain composition on the
+    card; kernel and plain timed per stack of the batch, the kernel per
+    stack of bone 0 alone."""
+    cases = [(f"batch {name}", stack_args(args), out)
+             for name, (args, out) in zip(STACKS, main_stacks)]
+    n_bones = sum(per_bone_launches(*c) for c in cases)
+    log(f"slice-stack: the {len(cases)} batched launches equal their "
+        f"{n_bones} per-bone launches bit for bit")
+    from shoulder_tpu_torch.ops import slicing
+
     sg0, _zs, interp0, band0, k0 = stack_args(bone0_stacks[1][0])
+    sg0 = slicing.SortedGeom(*(x[0] for x in sg0))  # bone 0 alone: (F, ...)
     edge = edge_planes(sg0)
     cases.append(("bone 0 edge planes", (sg0, edge, interp0, band0, k0),
                   None))
@@ -751,9 +821,12 @@ def slice_kernel_phase(main_stacks, bone0_stacks, smi):
     if last["overflow_rows"] == 0:
         raise AssertionError("k = 64 did not overflow")
     log(f"slice-stack kernel vs plain, all {len(cases)} calls: {worst}")
-    per_stack = {name: time_stack(name, args, smi)
-                 for name, (args, _) in zip(STACKS, bone0_stacks)}
-    return worst, per_stack
+    per_stack = {name: time_stack(f"batch {name}", args, smi)
+                 for name, (args, _) in zip(STACKS, main_stacks)}
+    per_stack_bone0 = {name: time_stack(f"bone 0 {name}", args, smi,
+                                        plain_too=False)
+                       for name, (args, _) in zip(STACKS, bone0_stacks)}
+    return worst, per_stack, per_stack_bone0
 
 
 def stage_breakdown(args):
@@ -763,7 +836,7 @@ def stage_breakdown(args):
     shows what the stamps cost."""
     from shoulder_tpu_torch.ops import slicing
 
-    stamps = torch.zeros((args[1].shape[0], 12), dtype=torch.int64,
+    stamps = torch.zeros((args[1].numel(), 12), dtype=torch.int64,
                          device=args[1].device)
     timed_ms = timed_cuda(
         lambda: slicing.slice_stack_kernel(*args, stamps=stamps), 50)
@@ -902,10 +975,10 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
     launches, walk_launches = slicing.launch_count, chain_walk.launch_count
     log(f"ct batch of {n}: {batch_ms:.1f} ms wall, {launches} slice-stack "
         f"launches, {walk_launches} walk launches ({smi})")
-    if launches != 3 * n or len(ct_stacks) != 3 * n or walk_launches != 0:
+    if launches != 3 or len(ct_stacks) != 3 or walk_launches != 0:
         raise AssertionError(f"ct batch: {launches} slice-stack and "
                              f"{walk_launches} walk launches, expected "
-                             f"{3 * n} and 0")
+                             f"3 and 0")
     lm_ct = B.landmarks_to_numpy(lm)
 
     # ---- the direct mesh of each generator bone, same config
@@ -974,14 +1047,18 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
         f"{unet_bytes} B; bound {unet_bound_ms:.4f} ms by {unet_bound_by}; "
         f"warm calls {min(warm):.2f}-{max(warm):.2f} ms ({smi})")
 
-    # ---- the kernel against the plain composition on every CT stack
-    worst, _ = check_stacks(
-        [(f"ct bone {i // 3} {STACKS[i % 3]}", stack_args(a), out)
-         for i, (a, out) in enumerate(ct_stacks)])
-    log(f"slice-stack kernel vs plain, all {len(ct_stacks)} ct stacks: "
-        f"{worst}")
-    per_stack = {name: time_stack(f"ct {name}", a, smi)
-                 for name, (a, _) in zip(STACKS, ct_stacks[:3])}
+    # ---- each batched CT launch against its bones' own launches and the
+    # batched plain composition
+    cases = [(f"ct batch {name}", stack_args(a), out)
+             for name, (a, out) in zip(STACKS, ct_stacks)]
+    n_bones = sum(per_bone_launches(*c) for c in cases)
+    log(f"slice-stack: the {len(cases)} batched ct launches equal their "
+        f"{n_bones} per-bone launches bit for bit")
+    worst, _ = check_stacks(cases)
+    log(f"slice-stack kernel vs plain, all {len(ct_stacks)} batched ct "
+        f"stacks: {worst}")
+    per_stack = {name: time_stack(f"ct batch {name}", a, smi)
+                 for name, (a, _) in zip(STACKS, ct_stacks)}
     total_s = time.perf_counter() - t_phase
     log(f"ct phase: {total_s:.1f} s in all ({smi})")
     ingest = {key: float(np.mean([row["ingest_ms"][key] for row in
@@ -1042,11 +1119,12 @@ def time_steps(model, optimizer, loss_fn, images, labels, smi, name):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi, n_corpus=8,
+def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
                 steps=30, batch=16, ct_steps=10, ct_size=(64, 48, 48),
                 cfg=None):
     """Phase 10: corpus, both trainers, checkpoints and serving from them,
-    on the card."""
+    on the card.  `lm_bone0`: bone 0's landmarks from its own run in phase
+    4 (a batch of one, as the zero-step check below runs it), as numpy."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.models import convert, ct_unet, unet, unet_train
     from shoulder_tpu_torch.ops import chain_walk, slicing
@@ -1206,11 +1284,12 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi, n_corpus=8,
     lm0 = L.compute_landmarks(bone0, rf, cfg=cfg,
                               seg_model=unet.load_model(dev, zero))
     for name in ("neckshaft", "retroversion", "radius_curvature"):
-        got, ref = float(getattr(lm0, name)), float(getattr(lm_np, name)[0])
-        log(f"serve unet, zero-step save: {name} {got!r} (phase 4 {ref!r})")
+        got, ref = float(getattr(lm0, name)), float(getattr(lm_bone0, name))
+        log(f"serve unet, zero-step save: {name} {got!r} (phase 4, bone 0 "
+            f"alone {ref!r})")
         if got != ref:
             raise AssertionError(f"serve unet: {name} differs from phase 4")
-    if bool(lm0.side_is_left) != bool(lm_np.side_is_left[0]):
+    if bool(lm0.side_is_left) != bool(lm_bone0.side_is_left):
         raise AssertionError("serve unet: side differs from phase 4")
 
     # ---- CT UNet: from the shipped weights, then from random ones
@@ -1398,6 +1477,146 @@ def spec_equal(a, b):
                for f in dataclasses.fields(a) if f.name != "name")
 
 
+def batch_timing(bones, rf, seg, smi):
+    """Phase 6 for one batch: one profiled run (kernel launches: the
+    profiler's cudaLaunchKernel and every launch API call, plus the
+    slice-stack launches the profiler does not count; the device's busy
+    time and idle share), one run under set_sync_debug_mode("warn") (its
+    synchronizing calls counted), then REPS warm synchronized runs
+    (p50)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.ops import slicing
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    n = bones.verts.shape[0]
+
+    def run():
+        B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
+                                  seg_model=seg)
+
+    run()
+    torch.cuda.synchronize()
+    port0 = slicing.launch_count
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    port = slicing.launch_count - port0
+    api = {e.key: e.count for e in prof.key_averages()
+           if "LaunchKernel" in e.key}
+    busy_ms = load_tool("profile_torch_batch")._busy_ms(prof)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+
+    lat = []
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - resident
+    res = {"bones": n, "cudaLaunchKernel": api.get("cudaLaunchKernel", 0),
+           "resident_bytes": resident, "peak_bytes": peak,
+           "launch_api": api, "slice_stack_launches": port,
+           "launches": sum(api.values()) + port, "syncs": syncs,
+           "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms, "batch_ms": lat,
+           "p50_ms": float(np.median(lat))}
+    log(f"batch of {n}: {res['launches']} kernel launches ({api}, plus "
+        f"{port} slice-stack launches), {syncs} synchronizing calls; "
+        f"profiled run {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+        f"share {res['idle_share']:.3f}; batch ms "
+        + ", ".join(f"{t:.1f}" for t in lat)
+        + f", p50 {res['p50_ms']:.1f}; peak memory above the "
+        f"{resident / 2**20:.1f} MiB resident {peak / 2**20:.1f} MiB ({smi})")
+    return res
+
+
+def mesh_phase(bones, lm, paths, cohort_res, smi):
+    """Phase 12: parallel/mesh.py on the mesh of every card (one here)."""
+    from shoulder_tpu_torch import cohort
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+    from shoulder_tpu_torch.parallel import mesh as pmesh
+    from shoulder_tpu_torch.pipeline import landmarks as L
+
+    mesh = pmesh.bone_mesh()
+    n_dev = len(mesh.devices)
+    fn = pmesh.sharded_landmark_fn(mesh, cfg=DEFAULT_CONFIG)
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    t0 = time.perf_counter()
+    out = fn(pmesh.shard_bones(bones, mesh))
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = slicing.launch_count
+    if launches != 3 * n_dev or chain_walk.launch_count != 0:
+        raise AssertionError(f"mesh: {launches} slice-stack and "
+                             f"{chain_walk.launch_count} walk launches")
+    home = lm.neck_z.device
+    got = L.Landmarks(*(torch.cat([getattr(o, f).to(home) for o in out])
+                        for f in L.Landmarks._fields))
+    differ = [f for f, g, w in zip(L.Landmarks._fields, got, lm)
+              if not same_tensor(g, w)]
+    log(f"mesh: {n_dev} device(s) {[str(d) for d in mesh.devices]}, sharded "
+        f"batch of {bones.verts.shape[0]} in {batch_ms:.1f} ms, {launches} "
+        f"slice-stack launches; fields differing from phase 4: {differ}")
+    if differ:
+        raise AssertionError(f"mesh: {differ} differ from phase 4")
+
+    stats = {k: float(v) for k, v in pmesh.cohort_stats(out, mesh).items()}
+    lm_np = L.Landmarks(*(x.cpu().numpy() for x in lm))
+    for name, field in (("retroversion", "retroversion"),
+                        ("neckshaft", "neckshaft"),
+                        ("radius", "radius_curvature")):
+        x = getattr(lm_np, field).astype(np.float64)
+        want = (np.nanmean(x), np.nanstd(x), float(np.isfinite(x).sum()))
+        have = (stats[f"mean_{name}"], stats[f"std_{name}"],
+                stats[f"n_{name}"])
+        if not (abs(have[0] - want[0]) <= 1e-5 * max(1.0, abs(want[0]))
+                and abs(have[1] - want[1]) <= 1e-4 and have[2] == want[2]):
+            raise AssertionError(f"mesh: cohort_stats {name} {have} vs numpy "
+                                 f"{want}")
+    if stats["left_fraction"] != float(lm_np.side_is_left.mean()):
+        raise AssertionError("mesh: cohort_stats left_fraction")
+    log(f"mesh: cohort_stats {stats} (numpy's nanmean / nanstd agree)")
+
+    t0 = time.perf_counter()
+    res = cohort.process_cohort(paths, device_mesh=mesh, batch_size=4)
+    wall = time.perf_counter() - t0
+
+    def equal(a, b):
+        if isinstance(a, list):
+            return len(a) == len(b) and all(map(equal, a, b))
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, np.ndarray):
+            return np.array_equal(a, b, equal_nan=True)
+        return a == b or (a != a and b != b)
+
+    log(f"mesh: process_cohort(device_mesh=...) {len(res)} bones in "
+        f"{wall:.2f} s, equal to phase 8: {equal(res, cohort_res)}")
+    if not equal(res, cohort_res):
+        raise AssertionError("mesh: process_cohort on the mesh differs from "
+                             "phase 8")
+    return {"devices": n_dev, "launches": launches, "batch_ms": batch_ms,
+            "cohort_stats": stats, "cohort_s": wall}
+
+
 def main(td):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's main path "
@@ -1457,13 +1676,15 @@ def main(td):
     seg = unet.load_model(dev)
     bones = B.stack_bones(specs, dev)
 
-    # ---- bone 0's three stacks (they give phase 3 its real rows)
+    # ---- bone 0 alone, a batch of one: its three stacks give phase 3 its
+    # real rows, its image and landmarks serve phase 10
     bone0 = B.bone_tensors(specs[0], dev)
     with recording(slicing, "slice_stack", []) as bone0_stacks, \
             recording(unet, "segment_image", []) as bone0_seg:
-        L.compute_landmarks(bone0, rf, seg_model=seg)
+        lm_bone0 = L.compute_landmarks(bone0, rf, seg_model=seg)
     torch.cuda.synchronize()
-    bone0_image = bone0_seg[0][0][1]
+    lm_bone0 = L.Landmarks(*(x.cpu().numpy() for x in lm_bone0))
+    bone0_image = bone0_seg[0][0][1][0]
     if len(bone0_stacks) != 3:
         raise AssertionError(f"expected 3 stacks, saw {len(bone0_stacks)}")
     walk = walk_phase(dev, bone0_stacks, smi)
@@ -1482,11 +1703,12 @@ def main(td):
     walk_launches = chain_walk.launch_count
     log(f"pipeline: first batch of {BATCH} in {first_s:.2f} s, "
         f"{launches} slice-stack launches, {walk_launches} walk launches, "
-        f"{len(compactions)} plain compactions (surgical-neck planes)")
-    if launches != 3 * BATCH or len(main_stacks) != 3 * BATCH:
+        f"{len(compactions)} plain compactions (the batch's surgical-neck "
+        f"planes)")
+    if launches != 3 or len(main_stacks) != 3:
         raise AssertionError(f"the main path made {launches} slice-stack "
-                             f"launches, expected {3 * BATCH}")
-    if walk_launches != 0 or len(compactions) != BATCH:
+                             f"launches, expected 3 for the batch")
+    if walk_launches != 0 or len(compactions) != 1:
         raise AssertionError("the main path ran the standalone walk or the "
                              "plain compaction inside slice_stack")
 
@@ -1540,38 +1762,55 @@ def main(td):
         if not diff < 0.75:
             raise AssertionError(f"cpu and card differ by {diff} in {name}")
 
-    # ---- the fused kernel against the plain composition
-    worst, per_stack = slice_kernel_phase(main_stacks, bone0_stacks, smi)
+    # ---- the fused kernel against its per-bone launches and the plain
+    # composition
+    worst, per_stack, per_stack_bone0 = slice_kernel_phase(
+        main_stacks, bone0_stacks, smi)
     del main_stacks
 
-    # ---- timing
-    lat = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
-                                  seg_model=seg)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    p50 = float(np.median(lat))
-    log("batch ms: " + ", ".join(f"{t * 1e3:.1f}" for t in lat))
-    log(f"throughput: {BATCH / p50:.3f} bones/s, p50 {p50 * 1e3:.1f} "
-        f"ms/batch of {BATCH} ({smi})")
+    # ---- timing: a batch of 1 against a batch of 8
+    timing = {n: batch_timing(B.stack_bones(specs[:n], dev), rf, seg, smi)
+              for n in (1, BATCH)}
+    one, full = timing[1], timing[BATCH]
+    log(f"throughput: {BATCH / full['p50_ms'] * 1e3:.3f} bones/s, p50 "
+        f"{full['p50_ms']:.1f} ms/batch of {BATCH}; launches per batch of "
+        f"{BATCH} / of 1: {full['launches']} / {one['launches']} "
+        f"({full['launches'] / one['launches']:.3f}x), synchronizing calls "
+        f"{full['syncs']} / {one['syncs']} ({smi})")
+    # memory: the batch's peak grows with its bones; the largest batch
+    # that fits the card, linear in B from the batches of 1 and of 8
+    per_bone = (full["peak_bytes"] - one["peak_bytes"]) / (BATCH - 1)
+    total = torch.cuda.get_device_properties(0).total_memory
+    fits_b = 1 + int((total - full["resident_bytes"] - one["peak_bytes"])
+                     // max(per_bone, 1.0))
+    log(f"memory: peak {one['peak_bytes'] / 2**20:.1f} / "
+        f"{full['peak_bytes'] / 2**20:.1f} MiB for a batch of 1 / {BATCH}, "
+        f"{per_bone / 2**20:.1f} MiB per bone; the {total / 2**30:.1f} GiB "
+        f"card holds a batch of about {fits_b} ({smi})")
+    if full["launches"] > 1.25 * one["launches"] \
+            or full["syncs"] > one["syncs"]:
+        raise AssertionError("a batch of 8 takes more launches or syncs "
+                             "than the batch fold allows")
 
     with ingest_split(split := {}):
         facade = facade_phase(td, paths[0], dev, lm_np, smi)
     ingest_res["facade"] = ingest_check("facade", split, smi, n_specs=3)
     with ingest_split(split := {}):
-        cohort_launches = cohort_phase(paths, dev, lm_np, sides, smi)
+        cohort_launches, cohort_res = cohort_phase(paths, dev, lm_np, sides,
+                                                   smi)
     ingest_res["cohort"] = ingest_check("cohort", split, smi, n_specs=BATCH)
     ct_res = ct_phase(dev, rf, seg, smi)
     ct_worst = ct_res["worst"]
     ingest_res["ct"] = ct_res["ingest"]
-    train_res = train_phase(td, dev, rf, bone0, bone0_image, lm_np, smi)
+    train_res = train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi)
     train_worst = train_res["worst"]
     ingest_res["corpus"] = train_res["ingest"]
     acc = accuracy_phase(dev, rf, seg, smi)
     ingest_res["accuracy"] = {name: acc[name]["ingest"]
                               for name in ("healthy", "arthritic")}
+    with ingest_split(split := {}):
+        mesh_res = mesh_phase(bones, lm, paths, cohort_res, smi)
+    ingest_res["mesh"] = ingest_check("mesh", split, smi, n_specs=BATCH)
 
     print(json.dumps({"ingest": ingest_res, "accuracy": {
         name: {key: acc[name][key] for key in
@@ -1590,7 +1829,8 @@ def main(td):
                                "facade": facade,
                                "cohort": cohort_launches,
                                "ct": ct_res["launches"],
-                               "corpus": train_res["launches"]},
+                               "corpus": train_res["launches"],
+                               "mesh": mesh_res["launches"]},
         "max_abs_err": max(w[key] for w in (worst, ct_worst, train_worst)
                            for key in ("contour_mm", "centroid_mm")),
         "max_area_err_mm2": max(w[key]
@@ -1606,8 +1846,12 @@ def main(td):
         "bound_ms": prox["bound_ms"],
         "bound_by": prox["bound_by"],
         "library_ms": None,
+        "batch": BATCH,
         "per_stack": per_stack,
+        "per_stack_bone0": per_stack_bone0,
         "per_stack_ct": ct_res["per_stack"],
+        "timing": timing,
+        "mesh": mesh_res,
         "ct": {"max_abs_err": max(ct_worst["contour_mm"],
                                   ct_worst["centroid_mm"]),
                "max_area_err_mm2": max(ct_worst["area_mm2"],

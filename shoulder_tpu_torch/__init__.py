@@ -7,7 +7,10 @@ counterpart is easy to find.  The one Pallas TPU kernel of the main path,
 the contour-chain walk, is a hand-written CUDA kernel here
 (csrc/chain_walk.cu, ops/chain_walk.py), and on the main path it runs
 inside the fused slice-stack kernel (csrc/slice_stack.cu, one launch per
-slice stack, ops/slicing.py).
+slice stack for a whole bone batch, ops/slicing.py).  A bone batch runs
+as one program on a leading bone dimension, as the JAX package's vmap
+makes it (pipeline/landmarks.py), and parallel/mesh.py splits a batch
+over devices.
 
 The public API is the JAX package's: `Humerus`, `ProximalHumerus`,
 `HumeralHeadOsteotomy`, `Plot` (imported lazily) and

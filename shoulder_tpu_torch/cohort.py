@@ -4,9 +4,11 @@ Port of shoulder_tpu/cohort.py.  Bones run in fixed-size batches (a short
 last batch pads with a repeat of its last bone; results drop the pad).
 While the device runs one batch, a worker thread ingests the next (STL
 parse, OBB, head detection) and stacks it into page-locked host memory;
-the worker touches no stream and launches nothing.  The main thread
-copies each batch to the device with `non_blocking=True` on the current
-stream and reads back only the SUMMARY_FIELDS, in one copy per batch.
+the worker touches no stream and launches nothing.  Each batch runs
+through parallel/mesh.py's sharded pipeline: the main thread splits it
+over the mesh's devices (one shard on `device` when no mesh is given),
+copies each shard with `non_blocking=True` on the current stream, and
+reads back only the SUMMARY_FIELDS, in one copy per shard.
 """
 
 from __future__ import annotations
@@ -44,13 +46,18 @@ def _prep_chunk(paths, proximal, config, batch_n, pin):
     return specs, B.stack_host(padded, pin=pin)
 
 
-def _summary(lm, n_real: int) -> dict:
-    """The SUMMARY_FIELDS of a batch in one device-to-host copy, as numpy
-    arrays of the first n_real bones (float32; flags as 0/1)."""
-    parts = [getattr(lm, f) for f in SUMMARY_FIELDS]
-    n = parts[0].shape[0]
-    flat = torch.cat([p.reshape(n, -1).to(torch.float32) for p in parts],
-                     dim=1).cpu().numpy()[:n_real]
+def _summary(lms, n_real: int) -> dict:
+    """The SUMMARY_FIELDS of a batch, given as its shards' Landmarks (one
+    on a one-device mesh), in one device-to-host copy per shard, as
+    numpy arrays of the first n_real bones (float32; flags as 0/1)."""
+
+    def rows(lm):
+        n = lm.neck_z.shape[0]
+        return torch.cat([getattr(lm, f).reshape(n, -1).to(torch.float32)
+                          for f in SUMMARY_FIELDS], dim=1).cpu().numpy()
+
+    parts = [getattr(lms[0], f) for f in SUMMARY_FIELDS]
+    flat = np.concatenate([rows(lm) for lm in lms])[:n_real]
     out, col = {}, 0
     for f, p in zip(SUMMARY_FIELDS, parts):
         width = p[0].numel()
@@ -63,30 +70,36 @@ def process_cohort(
     stl_paths: Sequence,
     proximal: bool = False,
     config: PipelineConfig = DEFAULT_CONFIG,
-    device="cuda",
+    device_mesh=None,
     chunk: int = 150,
     batch_size: int = 8,
+    device="cuda",
 ) -> list[dict]:
     """Run the full landmark pipeline over a cohort of STL files.
 
     Returns one dict per bone: name, side, retroversion, neckshaft,
     radius_curvature, canal/TE/groove axes (CT frame), neck_z, and QC.
-    `batch_size` fixes the batch shape; the cohort streams through it
-    with the next batch's ingest prefetched.  `device` is where the
-    landmarks run (default the card; there is no CPU fallback).
+    With `device_mesh` (parallel.mesh.bone_mesh) each batch shards over
+    its devices; the batch is then at least one bone per device and a
+    multiple of their number.  Without one, the batch runs on `device`
+    alone (default the card; there is no CPU fallback).  `batch_size`
+    fixes the batch shape; the cohort streams through it with the next
+    batch's ingest prefetched.
     """
     from shoulder_tpu_torch.bone import _device
-    from shoulder_tpu_torch.models import forest
-    from shoulder_tpu_torch.models import unet as unet_mod
-    from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.parallel import mesh as pmesh
 
     if not len(stl_paths):
         return []
-    dev = _device(device)
-    pin = dev.type == "cuda"
-    # models first, so the device is initialized before the worker pins
-    rf = forest.load_params(dev)
-    seg = unet_mod.load_model(dev) if config.segmenter == "unet" else None
+    if device_mesh is None:
+        device_mesh = pmesh.bone_mesh([_device(device)])
+    n_dev = len(device_mesh.devices)
+    batch_size = max(batch_size, n_dev)
+    batch_size += (-batch_size) % n_dev
+    pin = any(d.type == "cuda" for d in device_mesh.devices)
+    # models first, so the devices are initialized before the worker pins
+    sharded = pmesh.sharded_landmark_fn(device_mesh, proximal=proximal,
+                                        cfg=config, chunk=chunk)
 
     path_chunks = [
         list(stl_paths[i:i + batch_size])
@@ -104,11 +117,9 @@ def process_cohort(
                                 config, batch_size, pin)
             # `host` stays referenced until the readback below has
             # synchronized, so its pinned pages outlive the async copy
-            bones = B.to_device(host, dev)
-            lm = B.compute_landmarks_batch(bones, rf, proximal=proximal,
-                                           cfg=config, chunk=chunk,
-                                           seg_model=seg)
-            sums.append(_summary(lm, len(chunk_specs)))
+            sums.append(_summary(
+                sharded(pmesh.shard_bones(host, device_mesh)),
+                len(chunk_specs)))
             specs.extend(chunk_specs)
 
     lm = {f: np.concatenate([s[f] for s in sums]) for f in SUMMARY_FIELDS}

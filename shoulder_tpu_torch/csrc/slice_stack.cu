@@ -1,5 +1,6 @@
-// Fused slice-stack kernel: every cross-section of one slice stack, one
-// thread block per plane, one launch per stack.
+// Fused slice-stack kernel: every cross-section of one slice stack of a
+// whole bone batch, one thread block per (bone, plane), one launch per
+// stack per batch.
 //
 // It replaces, on the card, the whole walk branch of ops/slicing.py's
 // slice_stack: the window search (_window_starts), the per-plane
@@ -13,14 +14,21 @@
 // computed by the same expressions in the same order where the plain
 // version does elementwise work.
 //
-// Contract, for S planes zs over the z-sorted faces of one mesh (F faces,
-// SortedGeom): window `band` (<= F), `k` compact slots (<= band),
-// `interp` samples per contour.
-//   in   fvt (F, 9) f32, ids (F, 4) i32, z_mm (F, 2) f32, z_key (F,) f32,
-//        cummax_z_max (F,) f32, zs (S,) f32
-//   out  contours (S, interp, 2) f32, centroids (S, 2) f32, areas (S,),
-//        total_areas (S,), overflow (S,) u8 (window overflow, or more than
-//        k faces crossed), open_edges (S,) u8
+// Contract, for B bones of F faces each (padded to one F, SortedGeom
+// stacked on a leading bone dim) and S planes zs per bone: window `band`
+// (<= F), `k` compact slots (<= band), `interp` samples per contour.
+//   in   fvt (B, F, 9) f32, ids (B, F, 4) i32, z_mm (B, F, 2) f32,
+//        z_key (B, F) f32, cummax_z_max (B, F) f32, zs (B, S) f32
+//   out  contours (B, S, interp, 2) f32, centroids (B, S, 2) f32, areas
+//        (B, S), total_areas (B, S), overflow (B, S) u8 (window overflow,
+//        or more than k faces crossed), open_edges (B, S) u8
+// Block (plane, bone) = (blockIdx.x, blockIdx.y) reads only its bone's
+// faces and writes only its row bone * S + plane: the batch is the JAX
+// walk kernel's batching rule (pallas_chain.py folds (B, S, K) into
+// B·S rows) carried to the whole stage.  A block computes exactly what it
+// computes in a launch of its bone alone, so the batched launch equals
+// the per-bone launches bit for bit.  Offsets are 64-bit: a CT batch of
+// 32 at 300,000 faces is 86 M floats of fvt.
 //
 // What bounds it on this card.  The bytes are few: each plane reads its
 // (band, 2) z window (16 KB at band 2048) and gathers at most k rows of
@@ -31,8 +39,9 @@
 // resampling search.  So a plane is latency, and the design keeps
 // everything between the stages in shared memory (nothing but the
 // inputs and the final outputs touches device memory) and runs one block
-// per plane, 200-600 blocks per stack over the 132 SMs, several resident
-// on each SM to overlap their latency chains.
+// per plane, 200-600 blocks per bone and stack (4800 for the proximal
+// stack of a batch of 8) over the 132 SMs, several resident on each SM to
+// overlap their latency chains.
 //
 // Stages of one block (256 threads):
 //   1. window: thread 0 binary-searches z_key (searchsorted, side left),
@@ -63,8 +72,10 @@
 // stamps clock64 at each stage boundary; chip_smoke.py prints the per-stage
 // medians.  On an H100 at DEFAULT_CONFIG the serial walk takes 26-27 us of
 // 38-41 us, the window search 2.7 us (16 dependent key loads by one
-// thread), every other stage 0.5-2.9 us.  Each stack runs in one wave, so
-// a stack's time is about one block's: the walk is what to shorten.
+// thread), every other stage 0.5-2.9 us.  One bone's stack runs in one
+// wave, so its time is about one block's; a batch's stack runs in
+// ceil(B·S / resident blocks) waves (7 for the proximal stack of 8
+// bones), so the walk is what to shorten either way.
 //
 // Numerics.  Built with -fmad=false (ops/kernels.py): nvcc would contract
 // a + t * b into an FMA, which PyTorch's separate elementwise kernels
@@ -75,10 +86,10 @@
 //
 // Shared memory per block: 64 k + 2 band + 20 bytes dynamic, 28.0 KB at
 // k 384 / band 2048, plus 256 B static; above 48 KB the launch opts in.
-// ptxas -v for sm_90a: 46 registers, a 40-byte stack frame (the per-face
-// vertex arrays), no spills.  So 5 blocks fit an SM (registers bound it),
-// 660 on the card: every stack of the main path runs in one wave.  The
-// timed build takes 48 registers.
+// ptxas -v for sm_90a (chip_smoke.py prints it): 40 registers, a 48-byte
+// stack frame (the per-face vertex arrays) with a 4-byte spill.  So 6
+// blocks fit an SM at these sizes, 792 on an H100.  The timed build takes
+// 48 registers and no spill.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -258,11 +269,21 @@ slice_stack_kernel(const float* __restrict__ fvt,
                    uint8_t* __restrict__ open_edges,
                    long long* __restrict__ stamps,
                    int n_faces, int band, int k, int interp) {
+  // this block's bone and its row of the (B, S) outputs
+  const int plane = blockIdx.x;
+  const size_t bone = blockIdx.y;
+  const size_t row = bone * gridDim.x + plane;
+  const size_t face0 = bone * static_cast<size_t>(n_faces);
+  fvt += face0 * 9;
+  ids += face0;
+  z_mm += face0;
+  z_key += face0;
+  cummax_z_max += face0;
   // thread 0 stamps stage i; called right after a barrier, so every thread
   // has finished the stage before
   auto stamp = [&](int i) {
     if constexpr (kTimed) {
-      if (threadIdx.x == 0) stamps[blockIdx.x * kStamps + i] = clock64();
+      if (threadIdx.x == 0) stamps[row * kStamps + i] = clock64();
     }
   };
   long long ns0 = 0;
@@ -279,8 +300,7 @@ slice_stack_kernel(const float* __restrict__ fvt,
   const Smem sm = carve(smem_raw, k);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int plane = blockIdx.x;
-  const float z = zs[plane];
+  const float z = zs[row];
 
   // ---- 1. window: slots [lo, lo + band) end at the insertion point of z
   if (tid == 0) {
@@ -509,7 +529,7 @@ slice_stack_kernel(const float* __restrict__ fvt,
   __syncthreads();
   stamp(8);
 
-  float2* out = contours + static_cast<size_t>(plane) * interp;
+  float2* out = contours + row * interp;
   for (int j = tid; j < interp; j += kThreads) {
     const float fj = static_cast<float>(j);
     int a = 0, b = k;  // the last knot whose first sample is at or before j
@@ -526,20 +546,20 @@ slice_stack_kernel(const float* __restrict__ fvt,
   }
 
   if (tid == 0) {
-    centroids[plane] = has
+    centroids[row] = has
         ? make_float2((sm.cum_x[e] - bx) / denom, (sm.cum_y[e] - by) / denom)
         : make_float2(0.0f, 0.0f);
-    areas[plane] = area_best;
-    total_areas[plane] = 0.5f * carry[0];
-    overflow[plane] = (s_win_over || over) ? 1 : 0;
-    open_edges[plane] = (s_open && !over) ? 1 : 0;
+    areas[row] = area_best;
+    total_areas[row] = 0.5f * carry[0];
+    overflow[row] = (s_win_over || over) ? 1 : 0;
+    open_edges[row] = (s_open && !over) ? 1 : 0;
   }
   if constexpr (kTimed) {
     __syncthreads();
     stamp(9);
     if (tid == 0) {
-      stamps[plane * kStamps + 10] = ns0;
-      stamps[plane * kStamps + 11] = global_ns();
+      stamps[row * kStamps + 10] = ns0;
+      stamps[row * kStamps + 11] = global_ns();
     }
   }
 }
@@ -549,14 +569,16 @@ int launch(const float* fvt, const int32_t* ids, const float* z_mm,
            const float* z_key, const float* cummax_z_max, const float* zs,
            float* contours, float* centroids, float* areas,
            float* total_areas, uint8_t* overflow, uint8_t* open_edges,
-           long long* stamps, int n_faces, int n_planes, int band, int k,
-           int interp, int device, void* stream) {
+           long long* stamps, int n_faces, int n_bones, int n_planes,
+           int band, int k, int interp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_planes <= 0) return 0;
+  if (n_planes <= 0 || n_bones <= 0) return 0;
   // the wrapper holds band and k to its limits; this guards the memory
-  // the kernel indexes: int16 slot ids, a window inside the faces
-  if (k < 1 || k > INT16_MAX || band < k || band > n_faces || interp < 2) {
+  // the kernel indexes: int16 slot ids, a window inside the faces, a
+  // bone per grid row (at most 65535)
+  if (k < 1 || k > INT16_MAX || band < k || band > n_faces || interp < 2 ||
+      n_bones > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(band, k);
@@ -566,7 +588,8 @@ int launch(const float* fvt, const int32_t* ids, const float* z_mm,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  slice_stack_kernel<kTimed><<<n_planes, kThreads, smem,
+  const dim3 grid(n_planes, n_bones);
+  slice_stack_kernel<kTimed><<<grid, kThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       fvt, reinterpret_cast<const int4*>(ids),
       reinterpret_cast<const float2*>(z_mm), z_key, cummax_z_max, zs,
@@ -603,36 +626,38 @@ int slice_stack_blocks_per_sm(int band, int k, int device) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Launches one block per plane on `stream` (a cudaStream_t) of device
-// `device` and returns cudaGetLastError() of the launch: 0 when it was
-// accepted.  Arguments the kernel cannot index safely return
-// cudaErrorInvalidValue and launch nothing.
+// Launches one block per (plane, bone), n_planes x n_bones, on `stream`
+// (a cudaStream_t) of device `device` and returns cudaGetLastError() of
+// the launch: 0 when it was accepted.  Arguments the kernel cannot index
+// safely return cudaErrorInvalidValue and launch nothing.
 int slice_stack_launch(const float* fvt, const int32_t* ids, const float* z_mm,
                        const float* z_key, const float* cummax_z_max,
                        const float* zs, float* contours, float* centroids,
                        float* areas, float* total_areas, uint8_t* overflow,
-                       uint8_t* open_edges, int n_faces, int n_planes,
-                       int band, int k, int interp, int device, void* stream) {
+                       uint8_t* open_edges, int n_faces, int n_bones,
+                       int n_planes, int band, int k, int interp, int device,
+                       void* stream) {
   return launch<false>(fvt, ids, z_mm, z_key, cummax_z_max, zs, contours,
                        centroids, areas, total_areas, overflow, open_edges,
-                       nullptr, n_faces, n_planes, band, k, interp, device,
-                       stream);
+                       nullptr, n_faces, n_bones, n_planes, band, k, interp,
+                       device, stream);
 }
 
 // The same launch of the timed build: it also writes kStamps int64 per
-// plane into `stamps` (n_planes x 12: clock64 at the start and after each
-// stage, then %globaltimer at the start and the end).  For measurement
-// only; the main path never calls it.
+// block into `stamps` (B·S x 12, row bone * S + plane: clock64 at the
+// start and after each stage, then %globaltimer at the start and the
+// end).  For measurement only; the main path never calls it.
 int slice_stack_launch_timed(
     const float* fvt, const int32_t* ids, const float* z_mm,
     const float* z_key, const float* cummax_z_max, const float* zs,
     float* contours, float* centroids, float* areas, float* total_areas,
     uint8_t* overflow, uint8_t* open_edges, long long* stamps, int n_faces,
-    int n_planes, int band, int k, int interp, int device, void* stream) {
+    int n_bones, int n_planes, int band, int k, int interp, int device,
+    void* stream) {
   return launch<true>(fvt, ids, z_mm, z_key, cummax_z_max, zs, contours,
                       centroids, areas, total_areas, overflow, open_edges,
-                      stamps, n_faces, n_planes, band, k, interp, device,
-                      stream);
+                      stamps, n_faces, n_bones, n_planes, band, k, interp,
+                      device, stream);
 }
 
 }  // extern "C"

@@ -201,13 +201,14 @@ def _load_model(device: str, npz_path: str, _size: int, _mtime_ns: int) -> UNet:
 
 @torch.no_grad()
 def segment_image(model: UNet, image):
-    """(H, W) normalized polar image -> (H, W) float {0,1} mask.
+    """(..., H, W) normalized polar images -> (..., H, W) float {0,1}
+    masks, every image of a batch through one forward pass.
 
     Pads to a multiple of 2^(pooling levels) so the skip connections
     align, then crops back.
     """
-    h, w = image.shape
+    h, w = image.shape[-2:]
     m = 1 << len(model.down)
-    x = F.pad(image, (0, (-w) % m, 0, (-h) % m))
-    logits = model(x[None, None])
-    return (logits[0, 0, :h, :w] > 0).to(image.dtype)
+    x = F.pad(image.reshape(-1, 1, h, w), (0, (-w) % m, 0, (-h) % m))
+    logits = model(x)
+    return (logits[:, 0, :h, :w] > 0).to(image.dtype).reshape(image.shape)

@@ -2,7 +2,9 @@
 
 Port of shoulder_tpu/ops/rect.py.  The rectangle comes from a two-stage
 dense angle sweep over a period of pi/2: 512 coarse angles, then 64 fine
-angles within one coarse step of the best.
+angles within one coarse step of the best.  `min_rotated_rect` takes a
+leading row dimension (slices, a bone batch folded in); the end-cutting
+functions take leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -68,40 +70,42 @@ def min_rotated_rect(pts) -> RotatedRect:
 
 
 def end_slab_mask(pts, rect: RotatedRect, yscale: float):
-    """Points beyond the slightly shrunk rectangle ends along the major
-    axis: |major coordinate - center| > yscale * major_extent / 2."""
-    y = (pts - rect.center) @ rect.major_dir
-    return torch.abs(y) > yscale * rect.major_extent / 2.0, y
+    """Points (..., N, 2) beyond the slightly shrunk rectangle ends along
+    the major axis: |major coordinate - center| > yscale * major_extent /
+    2."""
+    y = torch.matmul(pts - rect.center[..., None, :],
+                     rect.major_dir[..., :, None])[..., 0]
+    return torch.abs(y) > yscale * rect.major_extent[..., None] / 2.0, y
 
 
 def cyclic_runs(mask, max_runs: int):
-    """Label contiguous cyclic runs of True in a boolean ring: run ids in
-    [0, max_runs) (later runs share the last id), -1 where False.  Runs are
-    counted from the first False element (index 0 if none)."""
-    n = mask.shape[0]
-    first_false = torch.argmin(mask.to(torch.int8))
+    """Label contiguous cyclic runs of True in boolean rings (..., n): run
+    ids in [0, max_runs) (later runs share the last id), -1 where False.
+    Runs are counted from each ring's first False element (index 0 if
+    none)."""
+    n = mask.shape[-1]
+    first_false = torch.argmin(mask.to(torch.int8), dim=-1, keepdim=True)
     idx = (torch.arange(n, device=mask.device) + first_false) % n
-    m = mask[idx]
-    starts = m & ~torch.roll(m, 1)
-    starts[0] = m[0]
-    rid = torch.cumsum(starts.to(torch.int64), dim=0) - 1
+    m = mask.gather(-1, idx)
+    starts = m & ~torch.roll(m, 1, dims=-1)
+    starts[..., 0] = m[..., 0]
+    rid = torch.cumsum(starts.to(torch.int64), dim=-1) - 1
     rid = torch.where(m, torch.clamp(rid, max=max_runs - 1), -1)
-    out = torch.zeros(n, dtype=torch.int64, device=mask.device)
-    out[idx] = rid
-    return out
+    return torch.zeros_like(rid).scatter_(-1, idx, rid)
 
 
 def run_chord_centroids(pts, run_id, max_runs: int):
     """Mean point of each run's arc points (the cut-off end caps are
     hair-thin slivers, so this is the sliver centroid to within its
-    depth).  Returns (centroids (max_runs,2), counts (max_runs,),
-    valid (max_runs,))."""
-    run_ok = run_id >= 0
-    slot = torch.where(run_ok, run_id, max_runs)
-    counts = torch.zeros(max_runs + 1, dtype=torch.int64,
-                         device=pts.device).index_add_(0, slot, run_ok.to(torch.int64))
-    sums = torch.zeros((max_runs + 1, 2), dtype=pts.dtype,
-                       device=pts.device).index_add_(
-        0, slot, torch.where(run_ok[:, None], pts, 0.0))
-    cent = sums / torch.clamp(counts, min=1)[:, None]
-    return cent[:max_runs], counts[:max_runs], counts[:max_runs] > 0
+    depth), for rings pts (..., N, 2) and run_id (..., N).  Returns
+    (centroids (..., max_runs, 2), counts (..., max_runs), valid
+    (..., max_runs))."""
+    # sums over a (..., N, max_runs) run mask, not float atomics, so they
+    # come out the same in every run
+    in_run = run_id[..., :, None] == torch.arange(max_runs,
+                                                  device=pts.device)
+    counts = in_run.sum(dim=-2)
+    sums = torch.where(in_run[..., None], pts[..., :, None, :], 0.0).sum(
+        dim=-3)
+    cent = sums / torch.clamp(counts, min=1)[..., None]
+    return cent, counts, counts > 0

@@ -3,10 +3,13 @@ RBF changepoint, monotone-source row selection and ascending interp.
 
 Port of the functions of shoulder_tpu/ops/signal.py that the landmark
 pipeline runs.  Row-wise ops take an explicit leading row dimension where
-the JAX package vmapped them.
+the JAX package vmapped them (a bone batch folds into it), and the
+per-signal ops (the KDE, the changepoint) take leading batch dimensions.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -36,15 +39,23 @@ def savgol_filter(x, window: int, polyorder: int):
     hi = torch.clamp(idx + half_hi + 1, 0, n)
     interior = (c[..., hi] - c[..., lo]) / window
 
-    t = np.arange(window)
-    a = np.stack([t, np.ones(window)], axis=1)
-    proj = np.linalg.pinv(a)
-    w_start = torch.as_tensor((a[:edge] @ proj).astype(np.float32), device=dev)
-    w_end = torch.as_tensor((a[window - edge:] @ proj).astype(np.float32),
-                            device=dev)
+    w_start, w_end = _savgol_edges(window, str(dev))
     head = torch.einsum("ew,...w->...e", w_start.to(x.dtype), x[..., :window])
     tail = torch.einsum("ew,...w->...e", w_end.to(x.dtype), x[..., -window:])
     return torch.cat([head, interior[..., edge:n - edge], tail], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _savgol_edges(window: int, device: str):
+    """The linear fits' weights over the first and last `window // 2`
+    samples, float32 on `device`: copied there once per (window, device)
+    per process (the copy waits for the device); shared, never written."""
+    edge = window // 2
+    t = np.arange(window)
+    a = np.stack([t, np.ones(window)], axis=1)
+    proj = np.linalg.pinv(a)
+    return tuple(torch.as_tensor(w.astype(np.float32), device=device)
+                 for w in (a[:edge] @ proj, a[window - edge:] @ proj))
 
 
 def _peaks_core_dense_cand(x, height: float, prominence: float, width: float,
@@ -164,43 +175,51 @@ def find_peaks(x, height: float, prominence: float, width: float,
 
 
 def kde_linear_argmax(samples, sample_weights, grid):
-    """argmax over `grid` of a linear-kernel KDE (bandwidth 1.0):
-    density proportional to sum_i w_i max(0, 1 - |x - x_i|)."""
-    d = torch.abs(grid[:, None] - samples[None, :])
-    k = torch.clamp(1.0 - d, min=0.0) * sample_weights[None, :]
-    dens = k.sum(dim=1)
-    return grid[torch.argmax(dens)], dens
+    """argmax over `grid` (G,) of a linear-kernel KDE (bandwidth 1.0):
+    density proportional to sum_i w_i max(0, 1 - |x - x_i|), for samples
+    and weights (..., n).  Returns (argmax (...,), density (..., G)); the
+    argmax is gathered on the device, with no host read."""
+    d = torch.abs(grid[:, None] - samples[..., None, :])
+    k = torch.clamp(1.0 - d, min=0.0) * sample_weights[..., None, :]
+    dens = k.sum(dim=-1)
+    best = torch.argmax(dens, dim=-1)
+    return grid.index_select(0, best.reshape(-1)).reshape(best.shape), dens
 
 
 def rbf_changepoint_1bkp(signal, min_size: int = 2):
     """Exact single-breakpoint RBF-kernel changepoint
     (ruptures.KernelCPD(kernel='rbf').predict(n_bkps=1)): gamma = 1 /
     median off-diagonal squared distance; cost c(s,e) = (e-s) - S(s,e)/(e-s)
-    with S the Gram-block sum; argmin over t of c(0,t) + c(t,n)."""
+    with S the Gram-block sum; argmin over t of c(0,t) + c(t,n).  Signals
+    (..., n) give breakpoints (...,)."""
     x = signal.to(torch.float32)
-    n = x.shape[0]
+    n = x.shape[-1]
+    lead = x.shape[:-1]
     dev = x.device
-    d2 = (x[:, None] - x[None, :]) ** 2
+    d2 = (x[..., :, None] - x[..., None, :]) ** 2
     off = ~torch.eye(n, dtype=torch.bool, device=dev)
     m = n * (n - 1)
-    srt = torch.sort(torch.where(off, d2, torch.inf).reshape(-1)).values
-    med = 0.5 * (srt[(m - 1) // 2] + srt[m // 2])
+    srt = torch.sort(torch.where(off, d2, torch.inf).reshape(lead + (-1,)),
+                     dim=-1).values
+    med = 0.5 * (srt[..., (m - 1) // 2] + srt[..., m // 2])
     med = torch.where(med > 0, med, 1.0)
-    k = torch.exp(-d2 / med) * off + torch.eye(n, device=dev)
+    k = torch.exp(-d2 / med[..., None, None]) * off + torch.eye(n, device=dev)
 
-    csum = torch.cumsum(torch.cumsum(k, dim=0), dim=1)
-    padded = torch.zeros((n + 1, n + 1), device=dev)
-    padded[1:, 1:] = csum
+    csum = torch.cumsum(torch.cumsum(k, dim=-2), dim=-1)
+    padded = torch.zeros(lead + (n + 1, n + 1), device=dev)
+    padded[..., 1:, 1:] = csum
     ts = torch.arange(n, device=dev)
     len1 = ts.to(torch.float32)
     len2 = (n - ts).to(torch.float32)
-    diag = torch.diagonal(padded)[:n]
-    s1 = diag - padded[0, :n] - padded[:n, 0] + padded[0, 0]    # block(0, t)
-    s2 = padded[n, n] - padded[:n, n] - padded[n, :n] + diag    # block(t, n)
+    diag = torch.diagonal(padded, dim1=-2, dim2=-1)[..., :n]
+    s1 = (diag - padded[..., 0, :n] - padded[..., :n, 0]
+          + padded[..., 0, :1])                                 # block(0, t)
+    s2 = (padded[..., n, n:] - padded[..., :n, n] - padded[..., n, :n]
+          + diag)                                               # block(t, n)
     cost = (len1 - s1 / torch.clamp(len1, min=1.0)
             + len2 - s2 / torch.clamp(len2, min=1.0))
     ok = (ts >= min_size) & (ts <= n - min_size)
-    return torch.argmin(torch.where(ok, cost, torch.inf))
+    return torch.argmin(torch.where(ok, cost, torch.inf), dim=-1)
 
 
 def fill_from_scatter(dest, rows, m: int, init_row):

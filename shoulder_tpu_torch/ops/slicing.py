@@ -15,14 +15,17 @@ pipeline runs:
 plus the single-plane raw loop of the surgical neck (`slice_raw_banded`,
 pointer doubling, as in the JAX package on every backend).
 
-`slice_stack` runs steps 2-5 for a whole stack.  On the card it is one
-launch of the fused kernel csrc/slice_stack.cu (`slice_stack_kernel`, one
-block per plane, everything between the steps in shared memory); on the
-CPU it is their plain PyTorch composition (`slice_stack_plain`), which is
-the kernel's plain version.
+`slice_stack` runs steps 2-5 for a whole stack of a whole bone batch.
+On the card it is one launch of the fused kernel csrc/slice_stack.cu
+(`slice_stack_kernel`, one block per (bone, plane), everything between
+the steps in shared memory); on the CPU it is their plain PyTorch
+composition (`slice_stack_plain`), which is the kernel's plain version.
 
-JAX's per-slice `vmap` is an explicit leading slice dimension (S, ...)
-here.  Orientation is combinatorial (the sign pattern of the vertex
+JAX's per-slice `vmap` is an explicit slice dimension (..., S, ...) here,
+and its per-bone `vmap` a leading bone dimension: a SortedGeom of a batch
+has fields (B, F, ...) and its planes are zs (B, S); one bone's has
+fields (F, ...) and planes (S,).  Per-plane work runs on the B·S planes
+as rows, each reading its own bone's faces.  Orientation is combinatorial (the sign pattern of the vertex
 heights), never a dot product: a plane that grazes a vertex gives a
 near-zero segment whose dot-product sign is noise.  Segments are directed
 z_hat x face_normal, so exterior loops come out CCW (positive area).
@@ -44,6 +47,7 @@ _BIG = torch.iinfo(torch.int32).max
 # 227 KB per block
 KERNEL_MAX_K = 2048
 KERNEL_MAX_BAND = 16384
+KERNEL_MAX_BONES = 65535  # the launch's grid y dimension: one bone each
 STAGES = ("window", "compaction", "segments", "injectivity", "walk",
           "moments", "roll", "knots", "resample")  # timed kernel's stages
 
@@ -51,6 +55,8 @@ launch_count = 0  # slice-stack kernel launches since the caller reset it
 
 
 class SliceStack(NamedTuple):
+    """One stack's sections; a batch's carry a leading bone dim (B, S, ...)."""
+
     contours: torch.Tensor     # (S, N, 2) resampled largest-loop contours
     centroids: torch.Tensor    # (S, 2) area centroid of the largest loop
     areas: torch.Tensor        # (S,) largest-loop signed area
@@ -61,6 +67,8 @@ class SliceStack(NamedTuple):
 
 
 class RawLoop(NamedTuple):
+    """One plane's raw loop; a batch's carry a leading bone dim (B, ...)."""
+
     points: torch.Tensor    # (max_chain, 2) ordered loop points (padded)
     n: torch.Tensor         # () number of valid points
     area: torch.Tensor      # ()
@@ -72,7 +80,8 @@ class SortedGeom(NamedTuple):
 
     A plane at height z only crosses faces in a short window of the sorted
     order, so per-plane work runs on a (band,) window of it.  Padding
-    faces carry z_min = +inf and z_max = -inf, so they never cross.
+    faces carry z_min = +inf and z_max = -inf, so they never cross.  A
+    bone batch stacks the fields on a leading dim (B, F, ...).
     """
 
     fvt: torch.Tensor       # (F, 9) f32 per face: x0 x1 x2 y0 y1 y2 z0 z1 z2
@@ -90,54 +99,75 @@ def sorted_geom(verts, faces, neighbors, face_orig) -> SortedGeom:
     smallest original index).  Host and device transforms can disagree by
     ulps near z-ties, so the window search key is a suffix running min of
     z_min rather than z_min itself: every face with z_min <= z stays
-    below the key's insertion point of z.
+    below the key's insertion point of z.  Leading dims of verts (..., V,
+    3) and faces (..., F, 3) are a bone batch: each bone keeps its own
+    ingest order (no sort here, so no ties to order), and every scan runs
+    along its own face axis.
     """
-    fv = verts[faces.long()]                         # (F, 3, 3)
-    fvx, fvy, fvz = fv[:, :, 0], fv[:, :, 1], fv[:, :, 2]
-    z_min = fvz.amin(dim=1)
-    z_max = fvz.amax(dim=1)
-    degenerate = (faces[:, 0] == faces[:, 1]) & (faces[:, 1] == faces[:, 2])
+    lead, n_faces = faces.shape[:-2], faces.shape[-2]
+    idx = faces.long().reshape(lead + (n_faces * 3, 1)).expand(
+        lead + (n_faces * 3, 3))
+    fv = verts.gather(-2, idx).reshape(lead + (n_faces, 3, 3))  # (..., F, 3, 3)
+    fvx, fvy, fvz = fv[..., 0], fv[..., 1], fv[..., 2]
+    z_min = fvz.amin(dim=-1)
+    z_max = fvz.amax(dim=-1)
+    degenerate = ((faces[..., 0] == faces[..., 1])
+                  & (faces[..., 1] == faces[..., 2]))
     z_min = torch.where(degenerate, torch.inf, z_min)
     z_max = torch.where(degenerate, -torch.inf, z_max)
-    z_key = torch.flip(torch.cummin(torch.flip(z_min, [0]), dim=0).values, [0])
-    ids = torch.cat([face_orig.to(torch.int32)[:, None],
-                     neighbors.to(torch.int32)], dim=1)
+    z_key = torch.flip(torch.cummin(torch.flip(z_min, [-1]), dim=-1).values,
+                       [-1])
+    ids = torch.cat([face_orig.to(torch.int32)[..., None],
+                     neighbors.to(torch.int32)], dim=-1)
     return SortedGeom(
-        fvt=torch.cat([fvx, fvy, fvz], dim=1),
+        fvt=torch.cat([fvx, fvy, fvz], dim=-1),
         ids=ids,
         z_key=z_key,
-        z_mm=torch.stack([z_min, z_max], dim=1),
-        cummax_z_max=torch.cummax(z_max, dim=0).values,
+        z_mm=torch.stack([z_min, z_max], dim=-1),
+        cummax_z_max=torch.cummax(z_max, dim=-1).values,
     )
 
 
+def _flat(sg: SortedGeom):
+    """(one SortedGeom of all a batch's faces, the first row of each bone
+    (B,)): bone b's slot i is row b * F + i of the flat table."""
+    n_faces = sg.z_key.shape[-1]
+    flat = SortedGeom(*(x.reshape((-1,) + x.shape[sg.z_key.dim():])
+                        for x in sg))
+    base = torch.arange(sg.z_key.numel() // n_faces,
+                        device=sg.z_key.device) * n_faces
+    return flat, base
+
+
 def _window_starts(sg: SortedGeom, zs, band: int):
-    """Window offsets, insertion points and overflow flags of planes `zs`.
+    """Window offsets, insertion points and overflow flags of planes `zs`
+    (..., S) of the bones of `sg` (..., F).
 
     Window s is slots [lo[s], lo[s] + band) of the sorted order, ending
     at the insertion point of zs[s].  Overflow: a face below the window
     still reaches the plane (the band is too small for it).
     """
-    n_faces = sg.z_key.shape[0]
+    n_faces = sg.z_key.shape[-1]
     starts = torch.searchsorted(sg.z_key, zs, side="left")
     lo = torch.clamp(starts - band, 0, n_faces - band)
     below = torch.clamp(lo - 1, min=0)
-    overflow = (lo > 0) & (sg.cummax_z_max[below] >= zs)
+    overflow = (lo > 0) & (sg.cummax_z_max.gather(-1, below) >= zs)
     return lo, starts, overflow
 
 
-def _compact_slice(sg: SortedGeom, zmm_w, lo, z, k: int):
+def _compact_slice(sg: SortedGeom, zmm_w, lo, z, k: int, base=0):
     """Crossed faces of S planes compacted to the first k slots of a row.
 
     zmm_w (S, band, 2) are the planes' [z_min, z_max] windows starting at
-    slot lo (S,).  A face crosses plane z iff z_min < z <= z_max (with the
-    d == 0 -> +1e-7 convention of the segment math).  Crossed faces keep
-    their window order in slots [0, ncross); slots past ncross are
-    invalid.  Returns, per row: crossed (S,k) bool, start and end (S,k,2)
-    segment endpoints, succ (S,k) compact successor (self where none),
-    orig (S,k) original face ids, overflow (S,) (more than k crossed),
-    open_edge (S,) (a crossed face has no crossed neighbor across its
-    exit edge).
+    slot lo (S,) of their bone, whose slot 0 is row `base` (S,) of `sg`'s
+    face table (0 for one bone; `_flat` for a batch).  A face crosses
+    plane z iff z_min < z <= z_max (with the d == 0 -> +1e-7 convention
+    of the segment math).  Crossed faces keep their window order in slots
+    [0, ncross); slots past ncross are invalid.  Returns, per row:
+    crossed (S,k) bool, start and end (S,k,2) segment endpoints, succ
+    (S,k) compact successor (self where none), orig (S,k) original face
+    ids, overflow (S,) (more than k crossed), open_edge (S,) (a crossed
+    face has no crossed neighbor across its exit edge).
     """
     n_rows, band = zmm_w.shape[0], zmm_w.shape[1]
     dev = zmm_w.device
@@ -148,11 +178,12 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, z, k: int):
     over = ncross > k
     rows = torch.arange(k, device=dev)
     # order[j] = window position of the j-th crossed face
-    targets = (rows + 1).expand(n_rows, k).contiguous()
+    # a copy whatever n_rows is (contiguous() would copy only for n_rows > 1)
+    targets = (rows + 1).expand(n_rows, k).clone()
     order = torch.searchsorted(csum, targets, side="left")
     order = torch.clamp(order, max=band - 1)
     valid = rows < ncross[:, None]
-    slot = lo[:, None] + order                            # (S, k)
+    slot = (lo + base)[:, None] + order                   # (S, k)
     g = sg.fvt[slot]                                      # (S, k, 9)
     gi = sg.ids[slot]                                     # (S, k, 4)
     gx, gy, gz = g[..., 0:3], g[..., 3:6], g[..., 6:9]
@@ -293,13 +324,14 @@ def _post_walk(order, is_start, n, start, end, orig, interp_num: int):
 
 def slice_stack(sg: SortedGeom, zs, interp_num: int, band: int,
                 compact_k: int = 512, chunk: int = 150) -> SliceStack:
-    """Cross-section contour stack of all planes `zs` of one mesh.
+    """Cross-section contour stacks of planes zs (B, S) of a bone batch
+    (or (S,) of one bone).
 
     CPU tensors take the plain composition (`slice_stack_plain`); CUDA
-    tensors launch the fused kernel once for the stack, or raise.
+    tensors launch the fused kernel once for all B·S planes, or raise.
     `chunk` bounds the plain version's intermediates; the kernel has none.
     """
-    band = min(band, sg.z_key.shape[0])
+    band = min(band, sg.z_key.shape[-1])
     k = min(compact_k, band)
     if zs.device.type == "cpu":
         return slice_stack_plain(sg, zs, interp_num, band, k, chunk)
@@ -307,18 +339,25 @@ def slice_stack(sg: SortedGeom, zs, interp_num: int, band: int,
 
 
 def compact_stack(sg: SortedGeom, zs, band: int, k: int, chunk: int = 150):
-    """`_compact_slice` over all planes, `chunk` planes at a time (it
-    bounds the (chunk, band) and (chunk, k, 9) intermediates).  Returns
-    its outputs for the stack, with `over` including window overflow."""
+    """`_compact_slice` over all planes zs (..., S) of the bones of `sg`,
+    `chunk` planes of the B·S at a time (it bounds the (chunk, band) and
+    (chunk, k, 9) intermediates).  Returns its outputs with zs's leading
+    shape (..., S, k, ...), `over` including window overflow."""
     los, _starts, win_over = _window_starts(sg, zs, band)
+    flat, base = _flat(sg)
+    n_planes = zs.shape[-1]
+    base = base[:, None].expand(-1, n_planes).reshape(-1)
+    los, zs_rows = los.reshape(-1), zs.reshape(-1)
     win = torch.arange(band, device=zs.device)
     parts = []
-    for c0 in range(0, zs.shape[0], chunk):
-        lo = los[c0:c0 + chunk]
-        zmm_w = sg.z_mm[lo[:, None] + win]                  # (c, band, 2)
-        parts.append(_compact_slice(sg, zmm_w, lo, zs[c0:c0 + chunk], k))
+    for c0 in range(0, zs_rows.shape[0], chunk):
+        lo, b = los[c0:c0 + chunk], base[c0:c0 + chunk]
+        zmm_w = flat.z_mm[(b + lo)[:, None] + win]          # (c, band, 2)
+        parts.append(_compact_slice(flat, zmm_w, lo, zs_rows[c0:c0 + chunk],
+                                    k, b))
     crossed, start, end, succ, orig, over, open_edges = (
-        torch.cat(x, dim=0) for x in zip(*parts)
+        torch.cat(x, dim=0).reshape(zs.shape + x[0].shape[1:])
+        for x in zip(*parts)
     )
     return crossed, start, end, succ, orig, win_over | over, open_edges
 
@@ -326,34 +365,41 @@ def compact_stack(sg: SortedGeom, zs, band: int, k: int, chunk: int = 150):
 def slice_stack_plain(sg: SortedGeom, zs, interp_num: int, band: int,
                       k: int, chunk: int = 150) -> SliceStack:
     """The plain composition behind `slice_stack` (band and k already
-    clamped): compaction, one plain walk over all planes of the stack,
-    loop finish."""
+    clamped): compaction, one plain walk over all B·S planes, loop
+    finish."""
     crossed, start, end, succ, orig, overflow, open_edges = compact_stack(
         sg, zs, band, k, chunk)
+    rows = zs.numel()
     order, n, is_start = chain_walk.chain_walk_plain(
-        succ.to(torch.int32).contiguous(), crossed.to(torch.int32).contiguous()
+        succ.reshape(rows, k).to(torch.int32).contiguous(),
+        crossed.reshape(rows, k).to(torch.int32).contiguous()
     )
     contours, centroids, areas, total_areas = _post_walk(
-        order, is_start, n, start, end, orig, interp_num
+        order, is_start, n, start.reshape(rows, k, 2),
+        end.reshape(rows, k, 2), orig.reshape(rows, k), interp_num
     )
-    return SliceStack(contours, centroids, areas, total_areas, zs,
-                      overflow, open_edges)
+    return SliceStack(contours.reshape(zs.shape + contours.shape[1:]),
+                      centroids.reshape(zs.shape + (2,)),
+                      areas.reshape(zs.shape), total_areas.reshape(zs.shape),
+                      zs, overflow, open_edges)
 
 
 def check_kernel_args(sg: SortedGeom, zs, interp_num: int, band: int,
                       k: int) -> None:
     """Raise unless the slice-stack kernel takes these arguments: dtypes,
-    shapes, contiguity, alignment, one device, and band / k / interp_num
-    within the kernel's limits.  Reads metadata only."""
-    if zs.dim() != 1:
-        raise ValueError(f"zs must be 1-D, not {tuple(zs.shape)}")
-    n_faces = sg.z_key.shape[0]
+    shapes (planes zs (B, S) of B bones, or (S,) of one), contiguity,
+    alignment, one device, and band / k / interp_num within the kernel's
+    limits.  Reads metadata only."""
+    if zs.dim() not in (1, 2):
+        raise ValueError(f"zs must be (B, S) or (S,), not {tuple(zs.shape)}")
+    lead = tuple(zs.shape[:-1])
+    n_faces = sg.z_key.shape[-1]
     f32, i32 = torch.float32, torch.int32
-    want = {"fvt": (sg.fvt, f32, (n_faces, 9)),
-            "ids": (sg.ids, i32, (n_faces, 4)),
-            "z_mm": (sg.z_mm, f32, (n_faces, 2)),
-            "z_key": (sg.z_key, f32, (n_faces,)),
-            "cummax_z_max": (sg.cummax_z_max, f32, (n_faces,)),
+    want = {"fvt": (sg.fvt, f32, lead + (n_faces, 9)),
+            "ids": (sg.ids, i32, lead + (n_faces, 4)),
+            "z_mm": (sg.z_mm, f32, lead + (n_faces, 2)),
+            "z_key": (sg.z_key, f32, lead + (n_faces,)),
+            "cummax_z_max": (sg.cummax_z_max, f32, lead + (n_faces,)),
             "zs": (zs, f32, tuple(zs.shape))}
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype:
@@ -375,35 +421,41 @@ def check_kernel_args(sg: SortedGeom, zs, interp_num: int, band: int,
                          f"{KERNEL_MAX_BAND})")
     if interp_num < 2:
         raise ValueError(f"interp_num {interp_num} below 2")
+    if lead and lead[0] > KERNEL_MAX_BONES:
+        raise ValueError(f"{lead[0]} bones above the kernel's "
+                         f"{KERNEL_MAX_BONES}")
 
 
 def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
                        k: int, stamps=None) -> SliceStack:
-    """One launch of csrc/slice_stack.cu over all planes `zs` (CUDA
-    tensors; band and k already clamped).  Raises on arguments the kernel
-    does not take, on a failed build and on a refused launch.
+    """One launch of csrc/slice_stack.cu over all planes zs (B, S) of a
+    bone batch (or (S,) of one bone; CUDA tensors; band and k already
+    clamped).  Raises on arguments the kernel does not take, on a failed
+    build and on a refused launch.
 
-    With `stamps`, an (S, 12) int64 tensor, it launches the kernel's timed
-    build, which writes each block's stage clocks there (`stage_times`)."""
+    With `stamps`, a (B·S, 12) int64 tensor, it launches the kernel's
+    timed build, which writes each block's stage clocks there
+    (`stage_times`)."""
     check_kernel_args(sg, zs, interp_num, band, k)
     if stamps is not None and (stamps.dtype != torch.int64
-                               or stamps.shape != (zs.shape[0], 12)
+                               or stamps.shape != (zs.numel(), 12)
                                or not stamps.is_contiguous()
                                or stamps.device != zs.device):
-        raise ValueError("stamps must be a contiguous (S, 12) int64 tensor "
-                         "beside zs")
+        raise ValueError("stamps must be a contiguous (B·S, 12) int64 "
+                         "tensor beside zs")
     if zs.device.type != "cuda":
         raise ValueError(f"the slice-stack kernel runs on CUDA tensors, not "
                          f"{zs.device}")
     lib = kernels.library()
-    n_planes, dev = zs.shape[0], zs.device
+    n_bones = zs.shape[0] if zs.dim() == 2 else 1
+    n_planes, dev = zs.shape[-1], zs.device
     f32 = dict(dtype=torch.float32, device=dev)
-    contours = torch.empty((n_planes, interp_num, 2), **f32)
-    centroids = torch.empty((n_planes, 2), **f32)
-    areas = torch.empty((n_planes,), **f32)
-    total_areas = torch.empty((n_planes,), **f32)
-    overflow = torch.empty((n_planes,), dtype=torch.bool, device=dev)
-    open_edges = torch.empty((n_planes,), dtype=torch.bool, device=dev)
+    contours = torch.empty(zs.shape + (interp_num, 2), **f32)
+    centroids = torch.empty(zs.shape + (2,), **f32)
+    areas = torch.empty(zs.shape, **f32)
+    total_areas = torch.empty(zs.shape, **f32)
+    overflow = torch.empty(zs.shape, dtype=torch.bool, device=dev)
+    open_edges = torch.empty(zs.shape, dtype=torch.bool, device=dev)
     outs = [contours.data_ptr(), centroids.data_ptr(), areas.data_ptr(),
             total_areas.data_ptr(), overflow.data_ptr(),
             open_edges.data_ptr()]
@@ -414,13 +466,13 @@ def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
     rc = launcher(
         sg.fvt.data_ptr(), sg.ids.data_ptr(), sg.z_mm.data_ptr(),
         sg.z_key.data_ptr(), sg.cummax_z_max.data_ptr(), zs.data_ptr(),
-        *outs, sg.z_key.shape[0], n_planes, band, k, interp_num,
+        *outs, sg.z_key.shape[-1], n_bones, n_planes, band, k, interp_num,
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"slice_stack kernel launch failed: CUDA error {rc}")
     global launch_count
-    if n_planes:  # no planes, no launch
+    if zs.numel():  # no planes, no launch
         launch_count += 1
     return SliceStack(contours, centroids, areas, total_areas, zs, overflow,
                       open_edges)
@@ -436,13 +488,16 @@ def stage_times(stamps):
 
 
 def compact_points(points, mask, out_n: int):
-    """Pack masked rows to the front: (packed (out_n, D), count); rows
-    past count are zeros."""
-    order = torch.argsort((~mask).to(torch.int8), stable=True)[:out_n]
-    packed = points[order]
-    keep = mask[order]
-    packed = torch.where(keep[:, None], packed, 0.0)
-    return packed, torch.clamp(mask.sum(), max=out_n)
+    """Pack masked rows to the front of each set, points (..., N, D) and
+    mask (..., N): (packed (..., out_n, D), count (...,)); rows past count
+    are zeros."""
+    order = torch.argsort((~mask).to(torch.int8), dim=-1,
+                          stable=True)[..., :out_n]
+    packed = points.gather(-2, order[..., None].expand(
+        order.shape + points.shape[-1:]))
+    keep = mask.gather(-1, order)
+    packed = torch.where(keep[..., None], packed, 0.0)
+    return packed, torch.clamp(mask.sum(dim=-1), max=out_n)
 
 
 def _iters_for(n: int) -> int:
@@ -450,54 +505,58 @@ def _iters_for(n: int) -> int:
 
 
 def _label_loops(crossed, succ):
-    """Min-index loop labels via pointer doubling; uncrossed -> F."""
-    n_faces = succ.shape[0]
-    lab = torch.where(crossed, torch.arange(n_faces, device=succ.device),
-                      n_faces)
+    """Min-index loop labels of each row (B, k) via pointer doubling;
+    uncrossed -> k."""
+    k = succ.shape[-1]
+    lab = torch.where(crossed, torch.arange(k, device=succ.device), k)
     ptr = succ
-    for _ in range(_iters_for(n_faces)):
-        lab = torch.minimum(lab, torch.where(crossed, lab[ptr], lab))
-        ptr = ptr[ptr]
+    for _ in range(_iters_for(k)):
+        lab = torch.minimum(lab, torch.where(crossed, lab.gather(-1, ptr),
+                                             lab))
+        ptr = ptr.gather(-1, ptr)
     return lab
 
 
-def _loop_stats(crossed, start, end, lab, n_faces: int):
-    """Per-label signed area, area centroid, point count and mean point,
-    summed into F+1 slots (slot F collects the uncrossed faces)."""
+def _loop_stats(crossed, start, end, lab, k: int):
+    """Per-label signed area, area centroid, point count and mean point of
+    each row (B, k), summed into k+1 slots (slot k collects the uncrossed
+    faces).  The sums are reductions over a (B, k, k+1) label mask, not
+    float atomics, so they come out the same in every run."""
     dt, dev = start.dtype, start.device
-    cross2 = start[:, 0] * end[:, 1] - end[:, 0] * start[:, 1]
-    cross2 = torch.where(crossed, cross2, 0.0)
+    in_slot = lab[..., :, None] == torch.arange(k + 1, device=dev)
 
     def seg_sum(v):
-        return torch.zeros(n_faces + 1, dtype=v.dtype, device=dev).index_add_(
-            0, lab, v)
+        return torch.where(in_slot, v[..., :, None], 0).sum(dim=-2)
 
+    sx0, sy0, ex0, ey0 = start[..., 0], start[..., 1], end[..., 0], end[..., 1]
+    cross2 = torch.where(crossed, sx0 * ey0 - ex0 * sy0, 0.0)
     area = 0.5 * seg_sum(cross2)
-    cx = seg_sum((start[:, 0] + end[:, 0]) * cross2)
-    cy = seg_sum((start[:, 1] + end[:, 1]) * cross2)
+    cx = seg_sum((sx0 + ex0) * cross2)
+    cy = seg_sum((sy0 + ey0) * cross2)
     denom = torch.where(torch.abs(area) > 1e-12, 6.0 * area, 1.0)
-    centroid = torch.stack([cx, cy], dim=1) / denom[:, None]
+    centroid = torch.stack([cx, cy], dim=-1) / denom[..., None]
     count = seg_sum(crossed.to(torch.int64))
-    sx = seg_sum(torch.where(crossed, start[:, 0], 0.0))
-    sy = seg_sum(torch.where(crossed, start[:, 1], 0.0))
+    sx = seg_sum(torch.where(crossed, sx0, 0.0))
+    sy = seg_sum(torch.where(crossed, sy0, 0.0))
     cnt = torch.clamp(count, min=1).to(dt)
-    mean_pt = torch.stack([sx, sy], dim=1) / cnt[:, None]
+    mean_pt = torch.stack([sx, sy], dim=-1) / cnt[..., None]
     return area, centroid, count, mean_pt
 
 
 def _order_loop(crossed, start, succ, lab, best, count_best, max_chain: int,
                 is_rep):
-    """Ordered (max_chain, 2) points of the loop labelled `best`, starting
-    at its face marked `is_rep`, by pointer-jumping list ranking."""
-    n_faces = succ.shape[0]
-    rows = torch.arange(n_faces, device=succ.device)
-    member = crossed & (lab == best)
+    """Ordered (B, max_chain, 2) points of each row's loop labelled
+    best (B,), starting at its face marked `is_rep`, by pointer-jumping
+    list ranking."""
+    k = succ.shape[-1]
+    rows = torch.arange(k, device=succ.device)
+    member = crossed & (lab == best[:, None])
     ptr = torch.where(is_rep, rows, succ)
     rnk = torch.where(is_rep, 0, 1)
-    for _ in range(_iters_for(n_faces)):
-        rnk = rnk + rnk[ptr]
-        ptr = ptr[ptr]
-    position = torch.where(is_rep, 0, count_best - rnk)
+    for _ in range(_iters_for(k)):
+        rnk = rnk + rnk.gather(-1, ptr)
+        ptr = ptr.gather(-1, ptr)
+    position = torch.where(is_rep, 0, count_best[:, None] - rnk)
     # a chain cut by an overflow never reaches the start face, so its rank
     # runs past the count: the JAX package's scatter (`.at[].set`, mode
     # "drop") wraps such a negative position once from the end and drops
@@ -505,50 +564,56 @@ def _order_loop(crossed, start, succ, lab, best, count_best, max_chain: int,
     position = torch.where(position < 0, position + max_chain, position)
     position = torch.where(member & (position >= 0) & (position < max_chain),
                            position, max_chain)
-    points = torch.zeros((max_chain + 1, 2), dtype=start.dtype,
+    points = torch.zeros((succ.shape[0], max_chain + 1, 2), dtype=start.dtype,
                          device=start.device)
-    points.index_copy_(0, position, start)
-    return points[:max_chain]
+    points.scatter_(1, position[..., None].expand(position.shape + (2,)),
+                    start)
+    return points[:, :max_chain]
 
 
 def slice_raw_banded(sg: SortedGeom, z, band: int, max_chain: int = 2048,
                      select: str = "largest", k: int = 512):
-    """Single-plane raw loop (ordered, not resampled) on a banded window.
+    """Single-plane raw loop (ordered, not resampled) on a banded window,
+    one plane z (B,) per bone of the batched `sg`.
 
     select='largest' picks the max-area loop; select='central' the loop
     (of at least 3 faces) whose mean point is nearest the z axis.  The
     loop starts at its smallest original face id.  Returns (RawLoop,
-    overflow).
+    overflow), each with a leading (B,).  Every pick is a gather on the
+    device: no host read.
     """
-    band = min(band, sg.z_key.shape[0])
+    band = min(band, sg.z_key.shape[-1])
     k = min(k, band)
-    z1 = z.reshape(1)
-    lo, _start, win_over = _window_starts(sg, z1, band)
-    zmm_w = sg.z_mm[lo[:, None] + torch.arange(band, device=z.device)]
+    lo, _start, win_over = _window_starts(sg, z[:, None], band)
+    lo, win_over = lo[:, 0], win_over[:, 0]
+    flat, base = _flat(sg)
+    zmm_w = flat.z_mm[(base + lo)[:, None]
+                      + torch.arange(band, device=z.device)]
     crossed, start, end, succ, orig, over, _open = _compact_slice(
-        sg, zmm_w, lo, z1, k
+        flat, zmm_w, lo, z, k, base
     )
-    crossed, start, end, succ, orig = (
-        crossed[0], start[0], end[0], succ[0], orig[0].to(torch.int64)
-    )
+    orig = orig.to(torch.int64)
     lab = _label_loops(crossed, succ)
     area, centroid, count, mean_pt = _loop_stats(crossed, start, end, lab, k)
     if select == "largest":
-        best = torch.argmax(area[:k])
+        best = torch.argmax(area[:, :k], dim=1)
     elif select == "central":
-        score = torch.abs(mean_pt[:k, 0]) + torch.abs(mean_pt[:k, 1])
-        score = torch.where(count[:k] >= 3, score, torch.inf)
-        best = torch.argmin(score)
+        score = torch.abs(mean_pt[:, :k, 0]) + torch.abs(mean_pt[:, :k, 1])
+        score = torch.where(count[:, :k] >= 3, score, torch.inf)
+        best = torch.argmin(score, dim=1)
     else:
         raise ValueError(select)
-    n_best = count[best]
-    min_orig = torch.full((k + 1,), _BIG, dtype=torch.int64, device=z.device)
-    min_orig.scatter_reduce_(0, lab, torch.where(crossed, orig, _BIG),
+    pick = best[:, None]
+    n_best = count.gather(1, pick)[:, 0]
+    min_orig = torch.full((z.shape[0], k + 1), _BIG, dtype=torch.int64,
+                          device=z.device)
+    min_orig.scatter_reduce_(1, lab, torch.where(crossed, orig, _BIG),
                              reduce="amin")
-    is_rep = crossed & (lab == best) & (orig == min_orig[lab])
+    is_rep = crossed & (lab == pick) & (orig == min_orig.gather(1, lab))
     points = _order_loop(crossed, start, succ, lab, best, n_best, max_chain,
                          is_rep)
     return (
-        RawLoop(points, n_best, area[best], centroid[best]),
-        (win_over | over)[0],
+        RawLoop(points, n_best, area.gather(1, pick)[:, 0],
+                torch.take_along_dim(centroid, pick[..., None], dim=1)[:, 0]),
+        win_over | over,
     )

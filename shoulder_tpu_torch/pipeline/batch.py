@@ -3,8 +3,10 @@
 Port of the batch entry points of shoulder_tpu/pipeline/batch.py: build
 BoneTensors from ingested BoneSpecs on an explicit device, stack them
 into a batch, and run the landmark pipeline over the batch.  The batch
-runs bone by bone here; each of a bone's three slice stacks is one
-slice-stack kernel launch over its planes.
+runs as one program, as JAX's vmap of compute_landmarks does: every stage
+works on the leading bone dimension (pipeline.landmarks.landmarks_batch),
+and each of the three slice stacks is one slice-stack kernel launch over
+all the batch's planes.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from shoulder_tpu_torch.models import unet as unet_mod
 from shoulder_tpu_torch.pipeline.landmarks import (
     BoneTensors,
     Landmarks,
-    compute_landmarks,
+    landmarks_batch,
 )
 
 
@@ -79,20 +81,16 @@ def compute_landmarks_batch(
     seg_model=None,
 ) -> Landmarks:
     """Landmarks of a stacked bone batch; every field gets a leading batch
-    dimension.  The forest and the UNet are loaded once per call when
-    not given."""
+    dimension.  One call of the batched pipeline for the whole batch: no
+    loop over bones.  The forest and the UNet are loaded once per call
+    when not given."""
     device = bones.verts.device
     if rf is None:
         rf = forest.load_params(device)
     if cfg.segmenter == "unet" and seg_model is None:
         seg_model = unet_mod.load_model(device)
-    per_bone = [
-        compute_landmarks(BoneTensors(*(f[b] for f in bones)), rf,
-                          proximal=proximal, cfg=cfg, chunk=chunk,
-                          seg_model=seg_model)
-        for b in range(bones.verts.shape[0])
-    ]
-    return Landmarks(*(torch.stack(f) for f in zip(*per_bone)))
+    return landmarks_batch(bones, rf, proximal=proximal, cfg=cfg,
+                           chunk=chunk, seg_model=seg_model)
 
 
 def landmarks_to_numpy(lm: Landmarks) -> Landmarks:

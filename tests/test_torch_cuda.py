@@ -126,6 +126,43 @@ def test_cuda_kernel_matches_plain_slice_stack(card, tiny_bone, stack):
     assert np.allclose(got.contours[ok], want.contours[ok], atol=1e-3)
 
 
+def test_cuda_batched_launch_equals_per_bone_launches(card, tmp_path):
+    """Three distinct bones in one launch (one block per (bone, plane))
+    give each bone what its own launch gives, bit for bit, and agree with
+    the batched plain composition."""
+    specs = []
+    for i, side in enumerate(("left", "right", "left")):
+        v, f = synthetic_humerus(side=side, n_rings=40, n_theta=32,
+                                 rng_transform=np.random.default_rng(40 + i))
+        stl.write_stl(tmp_path / f"b{i}.stl", v, f)
+        specs.append(ingest.load_bone(tmp_path / f"b{i}.stl", config=CFG))
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    bones = B.stack_bones(specs, card)
+    v_obb = geom.transform_pts(bones.verts, bones.obb_transform)
+    sg = tsl.sorted_geom(v_obb, bones.faces, bones.neighbors, bones.face_orig)
+    sset = CFG.proximal
+    zs = geom.linspace(0.95 * bones.z_max, 0.95 * bones.z_min,
+                       sset.zslice_num)
+    band = min(sset.band, sg.z_key.shape[-1])
+    k = min(CFG.slice_compact_k, band)
+    before = tsl.launch_count
+    got = tsl.slice_stack(sg, zs, sset.interp_num, sset.band,
+                          CFG.slice_compact_k)
+    assert tsl.launch_count == before + 1
+    for b in range(len(specs)):
+        one = tsl.slice_stack_kernel(tsl.SortedGeom(*(x[b] for x in sg)),
+                                     zs[b], sset.interp_num, band, k)
+        for name, g, w in zip(tsl.SliceStack._fields, got, one):
+            assert torch.equal(g[b], w), (b, name)
+    want = tsl.slice_stack_plain(sg, zs, sset.interp_num, band, k)
+    assert torch.equal(got.overflow, want.overflow)
+    assert torch.equal(got.open_edges, want.open_edges)
+    ok = ~want.overflow
+    assert torch.allclose(got.areas[ok], want.areas[ok], atol=0.01)
+    assert torch.allclose(got.contours[ok], want.contours[ok], atol=1e-3)
+
+
 def test_ct_path_card_matches_cpu(card):
     """The card's marching tets and UNet against the port's CPU ones."""
     vol, origin, spacing = ct.synth_ct_volume(**COARSE)

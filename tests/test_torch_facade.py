@@ -66,10 +66,11 @@ def _sig(fn, drop=()):
             for p in sig.parameters.values() if p.name not in drop]
 
 
-# the two allowed differences: the port's `device` keyword, and the JAX
-# cohort's `device_mesh` (waits for the parallel/mesh.py port)
+# the one allowed difference: the port's `device` keyword (the JAX
+# package has no JAX-only keyword left: `device_mesh` came with the port's
+# parallel/mesh.py)
 _PORT_ONLY = ("device",)
-_JAX_ONLY = ("device_mesh",)
+_JAX_ONLY = ()
 
 _CLASSES = [
     ("Canal", j_bone.Canal, t_bone.Canal),

@@ -126,6 +126,13 @@ def test_slice_stack_walk_matches_jax(geoms, stack):
     assert np.allclose(t.contours[ok], j.contours[ok], atol=1e-3)
 
 
+def _raw_one(sg, z, *args, **kw):
+    """The port's slice_raw_banded on one bone: a batch of one."""
+    raw, over = tsl.slice_raw_banded(tsl.SortedGeom(*(x[None] for x in sg)),
+                                     torch.as_tensor(z)[None], *args, **kw)
+    return tsl.RawLoop(*(x[0] for x in raw)), over[0]
+
+
 @pytest.mark.parametrize("select", ["central", "largest"])
 def test_slice_raw_banded_matches_jax(geoms, select):
     v_obb, jsg, tsg, _ = geoms
@@ -133,8 +140,7 @@ def test_slice_raw_banded_matches_jax(geoms, select):
     for rel in (0.3, 0.55, 0.8):
         z = np.float32(zlo + rel * (zhi - zlo))
         jraw, jover = jsl.slice_raw_banded(jsg, z, 512, CFG.max_chain, select)
-        traw, tover = tsl.slice_raw_banded(tsg, torch.as_tensor(z), 512,
-                                           CFG.max_chain, select)
+        traw, tover = _raw_one(tsg, z, 512, CFG.max_chain, select)
         n = int(jraw.n)
         assert int(traw.n) == n and n > 10
         assert bool(tover) == bool(jover)
@@ -160,8 +166,7 @@ def test_slice_raw_banded_overflow_matches_jax(geoms, select):
         z = np.float32(zlo + rel * (zhi - zlo))
         jraw, jover = jsl.slice_raw_banded(jsg, z, 512, CFG.max_chain, select,
                                            k=24)
-        traw, tover = tsl.slice_raw_banded(tsg, torch.as_tensor(z), 512,
-                                           CFG.max_chain, select, k=24)
+        traw, tover = _raw_one(tsg, z, 512, CFG.max_chain, select, k=24)
         assert bool(jover) and bool(tover)
         assert int(traw.n) == int(jraw.n)
         jpts = np.asarray(jraw.points)

@@ -29,7 +29,7 @@ for _ in $(seq "$rounds"); do
     (cd "$dir" && python3 tools/profile_torch_batch.py) > "$log" 2>&1 \
       || { tail -30 "$log"; exit 1; }
     echo "== run $i: $side"
-    grep -E "unprofiled|profiled batch|host waits|device ops|launches per bone|^  (slice_stack_kernel|_compact_slice|_post_walk|chain_walk_marked) " "$log"
+    grep -E "unprofiled|profiled batch|host waits|device ops|kernel launches per|^  (slice_stack_kernel|_compact_slice|_post_walk|chain_walk_marked) " "$log"
   done
 done
 python3 - "$out" <<'EOF'

@@ -9,7 +9,8 @@ canal fit, the groove stage and the anatomic-neck image build.  The
 supervision is generative and exact: bones are built in the identity
 frame, so each pixel's 3D point maps analytically to a (ring, theta) cell
 of the generator's articular-flag grid, looked up on the device.  Bones
-run one by one; each batch of BATCH bones is read back once.
+run one by one, each as a batch of one through the pipeline's batched
+stages; each batch of BATCH bones is read back once.
 
 With one seed the bones, their order and the rejections are those of
 tools/make_unet_corpus.py (the same numpy stream).
@@ -84,24 +85,26 @@ def extract_one(bt, label_grid, length, z_top, neck_frac, rf, cfg,
     neck_frac doubles as window-depth augmentation.
     """
     n_rings, n_theta = label_grid.shape
-    verts_obb = geom.transform_pts(bt.verts, bt.obb_transform)
-    sg = slicing.sorted_geom(verts_obb, bt.faces, bt.neighbors, bt.face_orig)
-    zs_full = geom.linspace(cfg.z_inset * bt.z_max, cfg.z_inset * bt.z_min,
+    # the pipeline's stages take a bone batch: this bone is a batch of one
+    b1 = B.BoneTensors(*(f[None] for f in bt))
+    verts_obb = geom.transform_pts(b1.verts, b1.obb_transform)
+    sg = slicing.sorted_geom(verts_obb, b1.faces, b1.neighbors, b1.face_orig)
+    zs_full = geom.linspace(cfg.z_inset * b1.z_max, cfg.z_inset * b1.z_min,
                             cfg.full.zslice_num)
     full = slicing.slice_stack(sg, zs_full, cfg.full.interp_num,
                                cfg.full.band, cfg.slice_compact_k, chunk)
     neck_ct = torch.stack([torch.zeros_like(length), torch.zeros_like(length),
                            neck_frac * length])
-    neck_z = geom.transform_pts(neck_ct[None, :], bt.obb_transform)[0, 2]
-    zs_prox = geom.linspace(cfg.z_inset * bt.z_max, neck_z,
+    neck_z = geom.transform_pts(neck_ct[None, :], bt.obb_transform)[:, 2]
+    zs_prox = geom.linspace(cfg.z_inset * b1.z_max, neck_z,
                             cfg.proximal.zslice_num)
     prox = slicing.slice_stack(sg, zs_prox, cfg.proximal.interp_num,
                                cfg.proximal.band, cfg.slice_compact_k, chunk)
-    _, _, canal_axis, _, _ = L._canal(full, bt, False, cfg)
-    _, _, bg_theta, _, _ = L._groove(prox, bt, canal_axis, rf, cfg)
+    _, _, canal_axis, _, _ = L._canal(full, b1, False, cfg)
+    _, _, bg_theta, _, _ = L._groove(prox, b1, canal_axis, rf, cfg)
 
     # the pipeline's anatomic-neck polar image build
-    image, pts = L._anp_image_points(prox, bg_theta, cfg)
+    image, pts = (x[0] for x in L._anp_image_points(prox, bg_theta, cfg))
 
     # identity build frame: pixel -> (ring, theta) grid cell
     pts_ct = geom.transform_pts(pts.reshape(-1, 3),

@@ -2,7 +2,9 @@
 
 Builds the same 8 synthetic humeri as chip_smoke.py, warms up, then runs
 one batch at DEFAULT_CONFIG under torch.profiler with a named range
-around each pipeline stage.  Prints the batch wall time, the device's
+around each pipeline stage.  The pipeline runs each stage once per batch
+over the leading bone dimension, so each range is entered once per batch
+(a slice-stack launch three times).  Prints the batch wall time, the device's
 busy and idle share over it, host time and kernel time per stage, the
 top kernels by device time, and the host's launches and waits; with
 --trace, writes the Chrome trace (tens of MB).
@@ -172,9 +174,9 @@ def main():
         "cudaMemcpyAsync", "cudaLaunchKernel")}
     print(f"\nhost waits and launches: {syncs}")
     n_launch = syncs.get("cudaLaunchKernel", 0)
-    print(f"kernel launches per bone: {(n_launch + port) / args.batch:.1f} "
+    print(f"kernel launches per batch of {args.batch}: {n_launch + port} "
           f"({n_launch} cudaLaunchKernel and {port} launches of the port's "
-          f"library per batch)")
+          f"library), {(n_launch + port) / args.batch:.1f} per bone")
     print("top 10 host ops by self CPU time")
     for e in sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  {e.self_cpu_time_total / 1e3:8.2f} ms {e.count:6d}x  "
