@@ -81,12 +81,11 @@ Phases (any failure raises, so the exit code is non-zero):
      weights (losses finite, the mean of the last five below the mean of
      the first five), one step on a fixed batch on the card and on the
      CPU (loss within 2e-2 relative; every parameter's gradient within
-     5e-2 relative L2 in bf16 from random weights and in float32 from the
-     shipped weights; in bf16 from the shipped weights the gradient is a
-     small residual of sums that cancel, which bf16 rounding alone moves
-     as far as the devices differ: reported beside each device's
-     distance from its own float32 gradient, and the card's bf16 gradient
-     held to a cosine of 0.5 with its float32 one), then save_params -> load_model -> segment_image on
+     5e-2 relative L2 in bf16 from random weights, in float32 and in bf16
+     from the shipped weights, where the gradient is a small residual of
+     sums that cancel; and the card's bf16 gradient there no farther
+     from its own float32 one than 1.25x the CPU's is from the CPU's),
+     then save_params -> load_model -> segment_image on
      phase 4's bone 0 image equal to the in-memory model's mask, and a
      zero-step save of the shipped weights giving phase 4's bone 0 its
      metrics of its own run in phase 4 again, exactly; the CT UNet: 10
@@ -102,13 +101,28 @@ Phases (any failure raises, so the exit code is non-zero):
      spec_from_arrays), one compute_landmarks_batch each at DEFAULT_CONFIG
      on the card: every side right, both cohorts inside that test's
      BOUNDS, each healthy bone within 0.75 deg / 0.75 mm of the JAX
-     package's row in tools/eval_accuracy_results.json; the arthritic
-     bones' differences from their rows are printed.
+     package's row in tools/eval_accuracy_results.json, and each
+     arthritic bone within 0.3 deg / 0.3 deg / 0.05 mm of its row (the
+     CPU's margin; see ACC_ARTHRITIC_GATE).
  12. mesh: parallel.mesh.bone_mesh() over the card (one device):
      sharded_landmark_fn on phase 4's batch equal to phase 4 exactly,
      with 3 slice-stack launches; cohort_stats of it against numpy's
      nanmean / nanstd; process_cohort(device_mesh=...) over the 8 STLs in
      batches of 4 equal to phase 8's results exactly.
+ 13. mesh training and sections: models.unet_train.train(mesh=bone_mesh(),
+     steps=3) at full width (512 x 512, batch 8) equal to three
+     one-device train_steps on the same draws bit for bit (losses and
+     every parameter; cuDNN deterministic for both) and dryrun(bone_mesh()) finite; on phase 4's 8 bones, the
+     card against the same calls on the CPU: the full-set slice_raw
+     (largest and central loops at two heights, counts equal, points
+     within 1e-3 mm, areas within 0.01 mm^2), sorted_geom without
+     face_orig on heights rounded to 0.5 mm (ties everywhere) bit for
+     bit, plane_section_points through each bone's anatomic-neck plane
+     (at most 2 crossing decisions differ, points within 1e-3 mm),
+     first_hit along the plane's normal with and without face_valid (a
+     seeded three quarters of the faces)
+     (hits equal, points within 1e-3 mm) and fit_circle on the largest
+     loops (within 1e-4 relative); no kernel launch.
 
 Phases 4 and 7-11 ingest: in each, every bone takes one native ingest
 where it comes from an STL or a soup, and one native OBB search, and the
@@ -120,7 +134,7 @@ The bone STLs live in one temporary directory for the whole run.
 
 The last four lines: a JSON object of the host ingest per phase (counts,
 ms per bone of each stage, the host's CPU, phase 4's native and numpy
-times of bone 0), a JSON object describing each kernel (launches in the
+times of bone 0), phase 13's and phase 11's results, a JSON object describing each kernel (launches in the
 main path's run, disagreement with the plain version, times, bound), the
 card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
@@ -181,6 +195,13 @@ ACC_BOUNDS = {
     "arthritic": dict(ns=30.0, rv=25.0, rad=3.5, mean_ns=5.0, mean_rv=5.0),
 }
 ACC_GATE = 0.75
+# the arthritic bones against their JAX rows (neck-shaft, retroversion deg,
+# radius mm): the CPU's margin.  The card lay up to 0.640 / 2.444 / 0.101
+# from them (bone 5, in the support gate's rescue branch) while cuDNN's
+# bf16 convolutions rounded their sums before the bias was added;
+# tools/arthritic_divergence_torch.py traced it to the UNet's masks, and
+# models/unet._RoundOnce rounds once
+ACC_ARTHRITIC_GATE = (0.3, 0.3, 0.05)
 # host-ingest stages timed per call: (stage, module, function)
 INGEST_STAGES = (
     ("read_weld_adjacency", "io.stl", "load_indexed"),
@@ -1236,10 +1257,10 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
             raise AssertionError(f"train unet ({name}): card and cpu losses "
                                  f"differ")
         # at the shipped weights the gradient is a small residual of sums
-        # that cancel, and bf16 rounding alone moves it as far as the two
-        # devices differ: gated in float32 there, in bf16 where the
-        # gradient is large (random weights); the bf16 gradient there is
-        # held to each device's own float32 one instead
+        # that cancel, so bf16 rounding moves it far from float32; the
+        # card's bf16 gradient is held to the CPU's, and its distance from
+        # its float32 one to the CPU's (both were 6x apart while cuDNN's
+        # convolutions rounded twice, ROADMAP fault 5)
         if name == "shipped weights, float32":
             shipped_f32 = (x, y)
         elif name == "shipped weights, bf16":
@@ -1253,11 +1274,11 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
                 f"the same device's in float32: relative L2 card "
                 f"{off_card:.3g}, cpu {off_cpu:.3g}; cosine card "
                 f"{cos_card:.4f}, cpu {cos_cpu:.4f}")
-            if not cos_card >= 0.5:
-                raise AssertionError("train unet: the card's bf16 gradient "
-                                     "at the shipped weights does not point "
-                                     "along its float32 one")
-        if name != "shipped weights, bf16" and worst_rel[name] > 5e-2:
+            if not off_card <= 1.25 * off_cpu:
+                raise AssertionError("train unet: the card's bf16 gradient at "
+                                     "the shipped weights lies farther from "
+                                     "its float32 one than the CPU's")
+        if worst_rel[name] > 5e-2:
             raise AssertionError(f"train unet ({name}): the gradient of "
                                  f"{max(rel, key=rel.get)} differs by "
                                  f"{worst_rel[name]:.3g}")
@@ -1430,6 +1451,10 @@ def accuracy_phase(dev, rf, seg2d, smi):
         if name == "healthy" and not (np.abs(vs_jax) < ACC_GATE).all():
             raise AssertionError("accuracy healthy: a bone differs from the "
                                  "JAX package's row")
+        if name == "arthritic" and not (np.abs(vs_jax)
+                                        < ACC_ARTHRITIC_GATE).all():
+            raise AssertionError(f"accuracy arthritic: a bone lies beyond "
+                                 f"{ACC_ARTHRITIC_GATE} of its JAX row")
         out[name] = summary
     out["total_s"] = time.perf_counter() - t_phase
     log(f"accuracy phase: {out['total_s']:.1f} s in all ({smi})")
@@ -1615,6 +1640,165 @@ def mesh_phase(bones, lm, paths, cohort_res, smi):
                              "phase 8")
     return {"devices": n_dev, "launches": launches, "batch_ms": batch_ms,
             "cohort_stats": stats, "cohort_s": wall}
+
+
+def mesh_train_sections_phase(bones, lm, smi):
+    """Phase 13: data-parallel UNet training over the one-card mesh, and
+    the full-set and arbitrary-plane sections on the card against the
+    CPU."""
+    from shoulder_tpu_torch.models import unet_train
+    from shoulder_tpu_torch.ops import chain_walk, rays, slicing
+    from shoulder_tpu_torch.parallel import mesh as pmesh
+    from shoulder_tpu_torch.utils import fits
+    from shoulder_tpu_torch.utils import geometry as geom
+
+    t_phase = time.perf_counter()
+    mesh = pmesh.bone_mesh()
+    # bit for bit needs the same kernels on both runs, so cuDNN takes its
+    # deterministic algorithms here (the default ones may use atomics)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        # train()'s loop with the one-device train_step for mesh_step
+        gen = unet_train.training_generator(None, 0, mesh.devices[0])
+        plain = unet_train.new_model(gen)
+        opt = unet_train.adamw(plain, 3e-4)
+        plain_losses = [float(unet_train.train_step(
+            plain, opt, unet_train.bce_loss,
+            *unet_train.synth_polar_batch(gen, 8, 512))) for _ in range(3)]
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meshed, mesh_losses = unet_train.train(steps=3, log_every=1,
+                                               mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    differ = [k for (k, v), w in zip(plain.state_dict().items(),
+                                     meshed.state_dict().values())
+              if not torch.equal(v, w)]
+    log(f"mesh training: 3 train_steps {plain_s:.2f} s, train(mesh="
+        f"bone_mesh() of {len(mesh.devices)}, steps=3) {mesh_s:.2f} s; "
+        f"losses {plain_losses} / {mesh_losses}; parameters differing: "
+        f"{differ} ({smi})")
+    if plain_losses != mesh_losses or differ:
+        raise AssertionError("mesh training: the one-card mesh differs from "
+                             "the one-device train_step")
+    dry = unet_train.dryrun(mesh)
+    log(f"mesh training: dryrun(bone_mesh()) loss {dry:.6f}")
+    if not np.isfinite(dry):
+        raise AssertionError("mesh training: dryrun's loss is not finite")
+
+    # ---- sections: the card against the CPU on the same inputs
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    cpu = torch.device("cpu")
+    verts_obb = geom.transform_pts(bones.verts.cpu(),
+                                   bones.obb_transform.cpu())
+    faces, nbrs = bones.faces.cpu(), bones.neighbors.cpu()
+    dev = bones.verts.device
+    n_bones = faces.shape[0]
+    out = {"raw_loops": 0}
+    worst = dict(points_mm=0.0, area_mm2=0.0)
+    t0 = time.perf_counter()
+    loops = {}
+    for frac in (0.3, 0.7):
+        z = (bones.z_min + frac * (bones.z_max - bones.z_min)).cpu()
+        for select in ("largest", "central"):
+            got, want = (slicing.slice_raw(verts_obb.to(d), faces.to(d),
+                                           nbrs.to(d), z.to(d),
+                                           select=select)
+                         for d in (dev, cpu))
+            got = slicing.RawLoop(*(x.cpu() for x in got))
+            if not torch.equal(got.n, want.n):
+                raise AssertionError(f"slice_raw {select} at {frac}: counts "
+                                     f"{got.n.tolist()} vs {want.n.tolist()}")
+            worst["points_mm"] = max(worst["points_mm"], float(
+                (got.points - want.points).abs().max()))
+            worst["area_mm2"] = max(worst["area_mm2"], float(
+                (got.area - want.area).abs().max()))
+            out["raw_loops"] += n_bones
+            loops[(frac, select)] = want
+    raw_s = time.perf_counter() - t0
+    log(f"sections: slice_raw card vs cpu, {out['raw_loops']} loops "
+        f"(largest and central, 2 heights, {n_bones} bones, "
+        f"{faces.shape[1]} faces each): max |points| "
+        f"{worst['points_mm']:.3g} mm, max |area| {worst['area_mm2']:.3g} "
+        f"mm^2 ({raw_s:.2f} s both)")
+    if worst["points_mm"] > TOL_MM or worst["area_mm2"] > TOL_MM2:
+        raise AssertionError("slice_raw: the card differs from the CPU")
+
+    tied = verts_obb.clone()
+    tied[..., 2] = torch.round(tied[..., 2] * 2.0) / 2.0
+    got, want = (slicing.sorted_geom(tied.to(d), faces.to(d), nbrs.to(d))
+                 for d in (dev, cpu))
+    differ = [f for f, g, w in zip(slicing.SortedGeom._fields, got, want)
+              if not torch.equal(g.cpu(), w)]
+    z_min = want.z_mm[..., 0]
+    ties = int((z_min[:, 1:] == z_min[:, :-1]).sum())
+    log(f"sections: sorted_geom without face_orig, card vs cpu on {n_bones} "
+        f"bones with {ties} tied neighbours in the sort: fields differing "
+        f"{differ}")
+    if differ:
+        raise AssertionError(f"sorted_geom: {differ} differ on the card")
+
+    origin, normal = lm.anp_plane_point.cpu(), lm.anp_plane_normal.cpu()
+    verts = bones.verts.cpu()
+    (gp, gc), (wp, wc) = (slicing.plane_section_points(
+        verts.to(d), faces.to(d), origin.to(d), normal.to(d))
+        for d in (dev, cpu))
+    gp, gc = gp.cpu(), gc.cpu()
+    both = gc & wc
+    flips = int((gc != wc).sum())
+    plane_mm = float((gp - wp).abs()[both].max())
+    log(f"sections: plane_section_points through each anatomic-neck plane, "
+        f"{int(wc.sum())} crossed faces on the CPU, {flips} crossing "
+        f"decisions differ, max |points| {plane_mm:.3g} mm")
+    if flips > 2 or plane_mm > TOL_MM:
+        raise AssertionError("plane_section_points: the card differs")
+
+    dirs = torch.stack([normal, -normal], dim=1)
+    largest = loops[(0.7, "largest")]
+    # face_valid: a seeded three quarters of the faces
+    valid = torch.rand(faces.shape[:2],
+                       generator=torch.Generator().manual_seed(0)) > 0.25
+    hits = {}
+    for name, fv in (("all faces", None), ("3/4 of the faces", valid)):
+        res = [rays.first_hit(verts.to(d)[:, None], faces.to(d)[:, None],
+                              origin.to(d)[:, None].expand(-1, 2, -1),
+                              dirs.to(d),
+                              None if fv is None else fv.to(d)[:, None])
+               for d in (dev, cpu)]
+        (gpt, _gt, ghit), (wpt, _wt, whit) = (
+            [x.cpu() for x in r] for r in res)
+        hit_mm = float((gpt - wpt).abs().max())
+        hits[name] = int(whit.sum())
+        log(f"sections: first_hit along +-normal from each anatomic-neck "
+            f"plane point, {name}: {int(whit.sum())} of {whit.numel()} rays "
+            f"hit, flags equal {torch.equal(ghit, whit)}, max |point| "
+            f"{hit_mm:.3g} mm")
+        if not torch.equal(ghit, whit) or hit_mm > TOL_MM:
+            raise AssertionError(f"first_hit ({name}): the card differs")
+
+    pts = largest.points
+    w = (torch.arange(pts.shape[1]) < largest.n[:, None]).to(torch.float32)
+    got, want = (fits.fit_circle(pts.to(d), w.to(d)) for d in (dev, cpu))
+    circle_rel = max(float(((g.cpu() - x).abs() / x.abs().clamp(min=1.0))
+                           .max()) for g, x in zip(got, want))
+    log(f"sections: fit_circle on the {n_bones} largest loops at 0.7, "
+        f"radii {np.round(want[2].numpy(), 3).tolist()} mm, card vs cpu "
+        f"max relative {circle_rel:.3g}")
+    if circle_rel > 1e-4:
+        raise AssertionError("fit_circle: the card differs from the CPU")
+    if slicing.launch_count or chain_walk.launch_count:
+        raise AssertionError("the sections launched a kernel")
+    total_s = time.perf_counter() - t_phase
+    log(f"mesh training and sections phase: {total_s:.1f} s in all ({smi})")
+    return {"train_s": plain_s, "mesh_train_s": mesh_s, "dryrun_loss": dry,
+            "raw_worst": worst, "plane_flips": flips, "plane_mm": plane_mm,
+            "hits": hits, "circle_rel": circle_rel, "total_s": total_s}
 
 
 def main(td):
@@ -1811,8 +1995,10 @@ def main(td):
     with ingest_split(split := {}):
         mesh_res = mesh_phase(bones, lm, paths, cohort_res, smi)
     ingest_res["mesh"] = ingest_check("mesh", split, smi, n_specs=BATCH)
+    sections = mesh_train_sections_phase(bones, lm, smi)
 
-    print(json.dumps({"ingest": ingest_res, "accuracy": {
+    print(json.dumps({"ingest": ingest_res,
+                      "mesh_train_sections": sections, "accuracy": {
         name: {key: acc[name][key] for key in
                ("max_abs_err", "mean_err", "max_abs_vs_jax", "vs_jax",
                 "ingest_s", "batch_s")}

@@ -8,7 +8,8 @@ default).  Downsampling is a 2x2 average pool; upsampling repeats each
 pixel 2x2 and applies a 2x2 conv with Flax's SAME padding (0 before, 1
 after).  The head is a 1x1 conv; mask = logits > 0.
 
-The convolutions compute in bfloat16 on purpose, as the Flax model does;
+The convolutions compute in bfloat16 on purpose, as the Flax model does,
+each output rounded to bfloat16 once (on a card through `_RoundOnce`);
 GroupNorm, GELU and the head run in float32.  As in Flax, the parameters
 are float32 and each convolution casts its input, kernel and bias to the
 compute dtype inside `forward`, so a gradient reaches the float32
@@ -44,12 +45,46 @@ def _pad_theta(x):
     return torch.cat([x[..., -1:], x, x[..., :1]], dim=-1)
 
 
+class _RoundOnce(torch.autograd.Function):
+    """A reduced-precision convolution whose bias joins the float32
+    accumulator, so the output is rounded to the compute dtype once, as
+    oneDNN computes it on the CPU and XLA in the JAX package.  cuDNN's
+    bf16 convolution rounds its sum to bf16 and PyTorch adds the bias
+    after it, a second rounding, 1.3-1.5x the one rounding's error, which
+    moved the arthritic cohort's masks by hundreds of pixels and its
+    metrics by up to 2.4 degrees (PERF.md).  The forward sums the
+    (exactly representable) reduced-precision operands in full float32,
+    cuDNN's TF32 off as the package sets it: TF32 tensor cores keep the
+    error at one rounding but leave 5x more outputs not correctly
+    rounded, enough to move the arthritic cohort's outlier 0.4 degrees
+    (PERF.md).  The backward is the reduced-precision convolution's
+    own."""
+
+    @staticmethod
+    def forward(ctx, conv, x, weight, bias):
+        ctx.conv = conv
+        ctx.save_for_backward(x, weight)
+        return conv._conv_forward(x.float(), weight.float(),
+                                  bias.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        c = ctx.conv
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            grad, x, weight, [weight.shape[0]], c.stride, c.padding,
+            c.dilation, False, [0] * len(c.stride), c.groups,
+            list(ctx.needs_input_grad[1:4]))
+        return None, gx, gw, gb
+
+
 class CastConv:
     """Mixin for a torch conv module that computes in `compute_dtype`
     whatever dtype its parameters rest in: input, weight and bias are
     cast inside forward (differentiably; a cast to the dtype a tensor
     already has is free), and the output has the compute dtype.  Flax's
-    nn.Conv(dtype=...)."""
+    nn.Conv(dtype=...).  On a card a reduced compute dtype goes through
+    `_RoundOnce`, so the output is rounded once there too."""
 
     def __init__(self, *args, compute_dtype=torch.bfloat16, **kwargs):
         super().__init__(*args, **kwargs)
@@ -57,8 +92,10 @@ class CastConv:
 
     def forward(self, x):
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt))
+        x, weight, bias = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if x.is_cuda and dt != torch.float32:
+            return _RoundOnce.apply(self, x, weight, bias)
+        return self._conv_forward(x, weight, bias)
 
 
 class CastConv2d(CastConv, nn.Conv2d):

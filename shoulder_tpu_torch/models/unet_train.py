@@ -18,12 +18,16 @@ Where this differs from the JAX module:
   a test can feed it JAX's own draws;
 * checkpoints are an npz in the flat Flax layout (models/convert.py),
   which `unet.load_model` serves from;
-* one device: no `mesh` argument and no `dryrun`.
+* data parallelism over a `parallel.mesh.BoneMesh` (`train(mesh=)`,
+  `dryrun`) takes no collectives library: one process drives every
+  replica, and the gradients meet on the mesh's first device by explicit
+  copies (`mesh_step`).
 """
 
 from __future__ import annotations
 
 import math
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from shoulder_tpu_torch.models import convert
 from shoulder_tpu_torch.models import unet as unet_mod
 from shoulder_tpu_torch.models.unet import UNet
+from shoulder_tpu_torch.parallel import mesh as pmesh
 from shoulder_tpu_torch.utils import geometry as geom
 
 # optax.adamw's defaults (optax 0.2.6): the decay covers every
@@ -245,6 +250,49 @@ def train_step(model, optimizer, loss_fn, images, labels):
     return loss.detach()
 
 
+def replicas(model, mesh) -> list:
+    """One copy of `model` per mesh device, in mesh order; the first is
+    `model` itself, which must sit on the mesh's first device."""
+    return [model] + [copy.deepcopy(model).to(dev) for dev in mesh.devices[1:]]
+
+
+def mesh_step(models, optimizer, loss_fn, images, labels, mesh):
+    """One data-parallel optimiser step over `mesh`, the JAX package's
+    step under `NamedSharding(mesh, P(axis))`: the batch (on the first
+    device) splits into contiguous equal shards along dim 0 (an uneven
+    split raises, as `shard_bones` does), replica i takes shard i, and
+    its loss is weighted by its share of the batch, so the shard
+    gradients sum to the gradient of the full batch's mean loss.  They
+    are summed in mesh order on the first device, where `optimizer` (over
+    `models[0]`) takes one AdamW step, and the parameters are then copied
+    to every other replica.  The shards run one after the other from this
+    thread.  Each replica's bf16 weight gradient is rounded on its own,
+    so a sharded step is close to the unsharded one but not equal to it;
+    on a one-device mesh it is `train_step` bit for bit.  Returns the
+    full batch's loss on the first device."""
+    home = mesh.devices[0]
+    shards = pmesh.shard_bones((images, labels), mesh)
+    n = images.shape[0]
+    optimizer.zero_grad(set_to_none=True)
+    for model in models[1:]:
+        model.zero_grad(set_to_none=True)
+    loss = 0.0
+    for model, (im, lb) in zip(models, shards):
+        part = loss_fn(model, im, lb) * (im.shape[0] / n)
+        part.backward()
+        loss = loss + part.detach().to(home)
+    with torch.no_grad():
+        for p, *others in zip(*(m.parameters() for m in models)):
+            for q in others:
+                p.grad += q.grad.to(home)
+    optimizer.step()
+    with torch.no_grad():
+        for p, *others in zip(*(m.parameters() for m in models)):
+            for q in others:
+                q.copy_(p)
+    return loss
+
+
 def train(
     steps: int = 500,
     batch: int = 8,
@@ -253,22 +301,52 @@ def train(
     seed: int = 0,
     log_every: int = 50,
     features=unet_mod.FEATURES,
-    device="cuda",
+    device=None,
     generator: torch.Generator | None = None,
+    mesh=None,
 ):
     """Train on the procedural stream alone, plain BCE.  Returns the
-    model and the losses of the logged steps."""
-    generator = training_generator(generator, seed, device)
+    model and the losses of the logged steps.
+
+    Every step is a `mesh_step` over `mesh` (a `parallel.mesh.BoneMesh`),
+    by default the one-device mesh of `device` (the card when neither is
+    given), which is the one-device step bit for bit.  The model is made
+    and every batch drawn on the mesh's first device, from the one
+    generator; `device`, if given with a mesh, must be that device.  The
+    model returned is the first device's replica."""
+    if mesh is None:
+        mesh = pmesh.bone_mesh(["cuda" if device is None else device])
+    home = mesh.devices[0]
+    if device is not None and (torch.device(device).type, torch.device(
+            device).index or 0) != (home.type, home.index or 0):
+        raise ValueError(f"device {device} is not the mesh's first "
+                         f"device {home}")
+    generator = training_generator(generator, seed, home)
     model = new_model(generator, features=features)
     optimizer = adamw(model, lr)
+    models = replicas(model, mesh)
     losses = []
     for i in range(steps):
         images, labels = synth_polar_batch(generator, batch, size)
-        loss = train_step(model, optimizer, bce_loss, images, labels)
+        loss = mesh_step(models, optimizer, bce_loss, images, labels, mesh)
         if i % log_every == 0:
             losses.append(float(loss))
             print(f"[unet] step {i} loss {losses[-1]:.4f}", flush=True)
     return model, losses
+
+
+def dryrun(mesh, batch: int = 8, image_size: int = 64) -> float:
+    """One data-parallel training step over `mesh` on tiny shapes: a
+    UNet of widths (4, 8) from seed 0, a procedural batch from seed 1,
+    plain BCE, AdamW at 1e-3.  Returns the step's loss, read on the host
+    (which waits for the step)."""
+    dev = mesh.devices[0]
+    model = new_model(training_generator(None, 0, dev), features=(4, 8))
+    optimizer = adamw(model, 1e-3)
+    images, labels = synth_polar_batch(training_generator(None, 1, dev),
+                                       batch, image_size)
+    return float(mesh_step(replicas(model, mesh), optimizer, bce_loss,
+                           images, labels, mesh))
 
 
 def mixture_counts(batch: int, frac_procedural: float):

@@ -18,17 +18,33 @@ def _corner(verts, faces, j):
     return verts.gather(-2, idx)
 
 
-def first_hits(verts, faces, origins, directions):
-    """Nearest positive-t hit of each ray (..., R) with a triangle soup
-    (verts (..., V, 3), faces (..., F, 3)).
+def first_hit(verts, faces, origin, direction, face_valid=None):
+    """Nearest positive-t hit of one ray (origin and direction (..., 3))
+    per mesh (verts (..., V, 3), faces (..., F, 3)): (point (..., 3),
+    t (...,), hit (...,)); a ray that hits nothing returns its origin and
+    t = inf.  `face_valid` (..., F) bool leaves the other faces out.
+    Padded (degenerate) faces never hit: their edge cross products
+    vanish."""
+    point, t, hit = first_hits(verts, faces, origin[..., None, :],
+                               direction[..., None, :], face_valid)
+    return point[..., 0, :], t[..., 0], hit[..., 0]
 
-    Returns (points (..., R, 3), ts (..., R), hits (..., R)): a ray that
-    hits nothing returns its origin and t = inf.  Padded (degenerate)
-    faces never hit because their edge cross products vanish.
-    """
-    v0 = _corner(verts, faces, 0)[..., None, :, :]  # (..., 1, F, 3)
-    e1 = _corner(verts, faces, 1)[..., None, :, :] - v0
-    e2 = _corner(verts, faces, 2)[..., None, :, :] - v0
+
+def first_hits(verts, faces, origins, directions, face_valid=None):
+    """`first_hit` of each ray (..., R) of a batch, origins and
+    directions (..., R, 3), against one triangle soup per mesh; the
+    triangle gather happens once for all rays.  Returns (points
+    (..., R, 3), ts (..., R), hits (..., R))."""
+    v0 = _corner(verts, faces, 0)
+    e1 = _corner(verts, faces, 1) - v0
+    e2 = _corner(verts, faces, 2) - v0
+    return _first_hit_tris(v0, e1, e2, origins, directions, face_valid)
+
+
+def _first_hit_tris(v0, e1, e2, origins, directions, face_valid=None):
+    """Möller-Trumbore for rays (..., R, 3) against triangles given by a
+    corner and two edges (..., F, 3)."""
+    v0, e1, e2 = (x[..., None, :, :] for x in (v0, e1, e2))  # (..., 1, F, 3)
     o = origins[..., :, None, :]                    # (..., R, 1, 3)
     d = directions[..., :, None, :].expand(
         directions.shape[:-1] + e2.shape[-2:])
@@ -45,6 +61,8 @@ def first_hits(verts, faces, origins, directions):
 
     hit = (ok & (u >= -_EPS) & (v >= -_EPS) & (u + v <= 1.0 + _EPS)
            & (t > 1e-5))
+    if face_valid is not None:
+        hit = hit & face_valid[..., None, :]
     t_masked = torch.where(hit, t, torch.inf)
     k = torch.argmin(t_masked, dim=-1, keepdim=True)
     any_hit = hit.gather(-1, k)[..., 0]

@@ -1,7 +1,6 @@
 """Batched mesh x plane cross-sections (PyTorch), walk path.
 
-Port of the parts of shoulder_tpu/ops/slicing.py that the landmark
-pipeline runs:
+Port of shoulder_tpu/ops/slicing.py.  What the landmark pipeline runs:
 
   1. `sorted_geom` on faces presorted by z_min at ingest,
   2. per-plane windows of the z-sorted faces (`_window_starts`),
@@ -13,7 +12,13 @@ pipeline runs:
      `_resample`),
 
 plus the single-plane raw loop of the surgical neck (`slice_raw_banded`,
-pointer doubling, as in the JAX package on every backend).
+pointer doubling, as in the JAX package on every backend).  Beside it,
+off the pipeline's path: `sorted_geom` without `face_orig` (the device
+sort by (z_min, face id)), the full-set single-plane section `slice_raw`
+on `FaceGeom` (`_crossing_topology`, `_segment_points`), and the section
+points of an arbitrarily oriented plane (`plane_section_points`).  The
+JAX package's doubling branch of `slice_stack` and its `_slice_one` are
+bit-identical to the walk there and have no counterpart here.
 
 `slice_stack` runs steps 2-5 for a whole stack of a whole bone batch.
 On the card it is one launch of the fused kernel csrc/slice_stack.cu
@@ -75,6 +80,25 @@ class RawLoop(NamedTuple):
     centroid: torch.Tensor  # (2,)
 
 
+class FaceGeom(NamedTuple):
+    """Each face's vertex coordinates and neighbours, in the mesh's own
+    face order; a bone batch stacks them on a leading dim (B, F, 3)."""
+
+    fvx: torch.Tensor        # (F, 3) x of the face's 3 vertices
+    fvy: torch.Tensor        # (F, 3)
+    fvz: torch.Tensor        # (F, 3)
+    neighbors: torch.Tensor  # (F, 3) neighbour face across edge slot j
+
+
+def face_geom(verts, faces, neighbors) -> FaceGeom:
+    """FaceGeom of verts (..., V, 3), faces and neighbors (..., F, 3)."""
+    lead, n_faces = faces.shape[:-2], faces.shape[-2]
+    idx = faces.long().reshape(lead + (n_faces * 3, 1)).expand(
+        lead + (n_faces * 3, 3))
+    fv = verts.gather(-2, idx).reshape(lead + (n_faces, 3, 3))
+    return FaceGeom(fv[..., 0], fv[..., 1], fv[..., 2], neighbors)
+
+
 class SortedGeom(NamedTuple):
     """Face geometry in z_min order, for banded slicing.
 
@@ -92,35 +116,55 @@ class SortedGeom(NamedTuple):
     cummax_z_max: torch.Tensor  # (F,) running max of z_max
 
 
-def sorted_geom(verts, faces, neighbors, face_orig) -> SortedGeom:
-    """Z-sorted face geometry for faces that ingest presorted by z_min.
-
-    `face_orig[i]` is slot i's original face index (loop starts use the
-    smallest original index).  Host and device transforms can disagree by
-    ulps near z-ties, so the window search key is a suffix running min of
-    z_min rather than z_min itself: every face with z_min <= z stays
-    below the key's insertion point of z.  Leading dims of verts (..., V,
-    3) and faces (..., F, 3) are a bone batch: each bone keeps its own
-    ingest order (no sort here, so no ties to order), and every scan runs
-    along its own face axis.
-    """
-    lead, n_faces = faces.shape[:-2], faces.shape[-2]
-    idx = faces.long().reshape(lead + (n_faces * 3, 1)).expand(
-        lead + (n_faces * 3, 3))
-    fv = verts.gather(-2, idx).reshape(lead + (n_faces, 3, 3))  # (..., F, 3, 3)
-    fvx, fvy, fvz = fv[..., 0], fv[..., 1], fv[..., 2]
-    z_min = fvz.amin(dim=-1)
-    z_max = fvz.amax(dim=-1)
+def _z_range(g: FaceGeom, faces):
+    """(z_min, z_max) per face; degenerate (padding) faces get +inf and
+    -inf, so they sort past every window and never cross."""
     degenerate = ((faces[..., 0] == faces[..., 1])
                   & (faces[..., 1] == faces[..., 2]))
-    z_min = torch.where(degenerate, torch.inf, z_min)
-    z_max = torch.where(degenerate, -torch.inf, z_max)
+    return (torch.where(degenerate, torch.inf, g.fvz.amin(dim=-1)),
+            torch.where(degenerate, -torch.inf, g.fvz.amax(dim=-1)))
+
+
+def sorted_geom(verts, faces, neighbors, face_orig=None) -> SortedGeom:
+    """Z-sorted face geometry of verts (..., V, 3), faces and neighbors
+    (..., F, 3); leading dims are a bone batch, each bone sorted and
+    scanned along its own face axis.
+
+    With `face_orig` the faces are presorted by z_min at ingest and
+    `face_orig[i]` is slot i's original face index (loop starts use the
+    smallest original index).  Host and device transforms can disagree by
+    ulps near z-ties, so the window search key is then a suffix running
+    min of z_min rather than z_min itself: every face with z_min <= z
+    stays below the key's insertion point of z.
+
+    Without it the faces are sorted here, by (z_min, face id): a stable
+    sort on z_min, which orders equal z_min (the padding faces' +inf
+    among them) by face id as JAX's two-key `lax.sort` does, so a batch
+    sorts each bone as that bone alone.  Neighbours are renumbered into
+    the sorted frame, and the sorted geometry is then a presorted one
+    with `face_orig` the sort's order (the suffix min of sorted keys is
+    the keys themselves).
+    """
+    g = face_geom(verts, faces, neighbors)
+    if face_orig is None:
+        z_min, _ = _z_range(g, faces)
+        order = torch.sort(z_min, dim=-1, stable=True).indices
+        inv = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(order.shape[-1], device=order.device)
+            .expand_as(order).contiguous())
+        nbr = neighbors.long()
+        nbr = torch.where(nbr >= 0, inv.gather(-1, torch.clamp(
+            nbr, min=0).flatten(-2)).reshape(nbr.shape), -1)
+        pick = order[..., None].expand(order.shape + (3,))
+        return sorted_geom(verts, faces.gather(-2, pick), nbr.gather(-2, pick),
+                           order)
+    z_min, z_max = _z_range(g, faces)
     z_key = torch.flip(torch.cummin(torch.flip(z_min, [-1]), dim=-1).values,
                        [-1])
     ids = torch.cat([face_orig.to(torch.int32)[..., None],
                      neighbors.to(torch.int32)], dim=-1)
     return SortedGeom(
-        fvt=torch.cat([fvx, fvy, fvz], dim=-1),
+        fvt=torch.cat([g.fvx, g.fvy, g.fvz], dim=-1),
         ids=ids,
         z_key=z_key,
         z_mm=torch.stack([z_min, z_max], dim=-1),
@@ -544,16 +588,19 @@ def _loop_stats(crossed, start, end, lab, k: int):
 
 
 def _order_loop(crossed, start, succ, lab, best, count_best, max_chain: int,
-                is_rep):
+                is_rep, iters: int | None = None):
     """Ordered (B, max_chain, 2) points of each row's loop labelled
     best (B,), starting at its face marked `is_rep`, by pointer-jumping
-    list ranking."""
+    list ranking in `iters` rounds (log2 of the row length by default).
+    A chain that dead-ends keeps doubling its rank every round, so where
+    a row stands for a longer face set the caller passes that set's
+    count, as the JAX package ranks it."""
     k = succ.shape[-1]
     rows = torch.arange(k, device=succ.device)
     member = crossed & (lab == best[:, None])
     ptr = torch.where(is_rep, rows, succ)
     rnk = torch.where(is_rep, 0, 1)
-    for _ in range(_iters_for(k)):
+    for _ in range(_iters_for(k) if iters is None else iters):
         rnk = rnk + rnk.gather(-1, ptr)
         ptr = ptr.gather(-1, ptr)
     position = torch.where(is_rep, 0, count_best[:, None] - rnk)
@@ -617,3 +664,146 @@ def slice_raw_banded(sg: SortedGeom, z, band: int, max_chain: int = 2048,
                 torch.take_along_dim(centroid, pick[..., None], dim=1)[:, 0]),
         win_over | over,
     )
+
+
+def _crossing_topology(geom: FaceGeom, z):
+    """The crossing structure of every face with plane z (...,), one
+    plane per bone of `geom` (..., F, 3); no points.
+
+    Orientation is combinatorial: the traversal enters through the
+    (+ -> -) crossed edge and exits through the (- -> +) one.  Returns
+    crossed, entry_slot, exit_slot, succ (the face across the exit edge,
+    self where there is none or it is uncrossed) and open_edge, each
+    (..., F).  Where a plane grazes a vertex and two faces claim one
+    successor, the smallest-index one keeps it.
+    """
+    n_faces, dev = geom.fvz.shape[-2], geom.fvz.device
+    d = geom.fvz - torch.as_tensor(z, device=dev)[..., None, None]
+    d = torch.where(d == 0.0, 1e-7, d)
+    pos = d > 0.0
+    pos_next = torch.roll(pos, -1, dims=-1)
+    crossed = (pos != pos_next).sum(dim=-1) == 2
+    rows = torch.arange(n_faces, device=dev).expand_as(crossed)
+    entry_slot = torch.argmax((pos & ~pos_next).to(torch.int8), dim=-1)
+    exit_slot = torch.argmax((~pos & pos_next).to(torch.int8), dim=-1)
+
+    succ_raw = geom.neighbors.long().gather(-1, exit_slot[..., None])[..., 0]
+    has_nbr = (succ_raw >= 0) & (succ_raw < n_faces)
+    succ = torch.where(crossed & has_nbr, succ_raw, rows)
+    succ_crossed = crossed.gather(-1, succ)
+    open_edge = crossed & ~(has_nbr & succ_crossed)
+    succ = torch.where(succ_crossed, succ, rows)
+    linked = crossed & (succ != rows)
+    pred_min = torch.full(crossed.shape[:-1] + (n_faces + 1,), n_faces,
+                          dtype=torch.int64, device=dev)
+    pred_min.scatter_reduce_(-1, torch.where(linked, succ, n_faces), rows,
+                             reduce="amin")
+    succ = torch.where(linked & (pred_min.gather(-1, succ) != rows), rows,
+                       succ)
+    return crossed, entry_slot, exit_slot, succ, open_edge
+
+
+def _segment_points(fvx, fvy, fvz, z, entry_slot, exit_slot):
+    """(start, end) (..., F, 2): each face's oriented intersection
+    segment with plane z (...,), from its crossing slots."""
+    d = fvz - torch.as_tensor(z, device=fvz.device)[..., None, None]
+    d = torch.where(d == 0.0, 1e-7, d)
+    denom = d - torch.roll(d, -1, dims=-1)
+    denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
+    t = d / denom
+    px = fvx + t * (torch.roll(fvx, -1, dims=-1) - fvx)
+    py = fvy + t * (torch.roll(fvy, -1, dims=-1) - fvy)
+
+    def at(slot):
+        return torch.stack([px.gather(-1, slot[..., None])[..., 0],
+                            py.gather(-1, slot[..., None])[..., 0]], dim=-1)
+
+    return at(entry_slot), at(exit_slot)
+
+
+def _crossing_segments(geom: FaceGeom, z):
+    """(crossed, start, end, succ, open_edge) of every face with plane z:
+    `_crossing_topology` and the segments of `_segment_points`."""
+    crossed, entry_slot, exit_slot, succ, open_edge = _crossing_topology(
+        geom, z)
+    start, end = _segment_points(geom.fvx, geom.fvy, geom.fvz, z,
+                                 entry_slot, exit_slot)
+    return crossed, start, end, succ, open_edge
+
+
+def slice_raw(verts, faces, neighbors, z, max_chain: int = 2048,
+              select: str = "largest") -> RawLoop:
+    """Single-plane section of the full face set, the raw ordered loop
+    (not resampled): one plane z (B,) per bone of verts (B, V, 3), faces
+    and neighbors (B, F, 3) in their original face order.
+
+    select='largest' picks the max-area loop; select='central' the loop
+    (of at least 3 faces) whose mean point is nearest the z axis.  The
+    loop starts at its smallest face id.  As in the JAX package the loop
+    is ranked over the whole face set, so a chain that an open edge cuts
+    wraps and drops in the order scatter as it does there.
+
+    The crossed faces are packed to the front first (in face order, so
+    labels and ties keep their order), which takes one host read: the
+    most faces any bone's plane crosses.
+    """
+    geom = face_geom(verts, faces, neighbors)
+    n_faces = faces.shape[-2]
+    crossed, start, end, succ, _open = _crossing_segments(geom, z)
+    n_cross = crossed.sum(dim=-1)
+    k = max(int(n_cross.max()), 1)
+    order = torch.argsort((~crossed).to(torch.int8), dim=-1,
+                          stable=True)[:, :k]
+    rows = torch.arange(k, device=z.device).expand_as(order)
+    valid = rows < n_cross[:, None]
+    inv = torch.zeros_like(crossed, dtype=torch.int64).scatter_(
+        -1, order, rows.contiguous())
+    succ_c = torch.where(valid, inv.gather(-1, succ.gather(-1, order)), rows)
+    pick = order[..., None].expand(order.shape + (2,))
+    start_c, end_c = start.gather(-2, pick), end.gather(-2, pick)
+
+    lab = _label_loops(valid, succ_c)
+    area, centroid, count, mean_pt = _loop_stats(valid, start_c, end_c, lab,
+                                                 k)
+    if select == "largest":
+        best = torch.argmax(area[:, :k], dim=1)
+    elif select == "central":
+        score = torch.abs(mean_pt[:, :k, 0]) + torch.abs(mean_pt[:, :k, 1])
+        score = torch.where(count[:, :k] >= 3, score, torch.inf)
+        best = torch.argmin(score, dim=1)
+    else:
+        raise ValueError(select)
+    pick = best[:, None]
+    n_best = count.gather(1, pick)[:, 0]
+    is_rep = valid & (lab == pick) & (rows == pick)
+    points = _order_loop(valid, start_c, succ_c, lab, best, n_best,
+                         max_chain, is_rep, iters=_iters_for(n_faces))
+    return RawLoop(points, n_best, area.gather(1, pick)[:, 0],
+                   torch.take_along_dim(centroid, pick[..., None],
+                                        dim=1)[:, 0])
+
+
+def plane_section_points(verts, faces, origin, normal):
+    """Every intersection point of an arbitrarily oriented plane (a point
+    `origin` (..., 3) and a normal (..., 3)) with a mesh, verts
+    (..., V, 3) and faces (..., F, 3): (points (..., F, 3), crossed
+    (..., F)), one point per crossed face (its oriented segment's start),
+    unordered, as trimesh's section vertices."""
+    n = normal / torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    d = (verts @ n[..., None])[..., 0] - (origin[..., None, :]
+                                          @ n[..., None])[..., 0]
+    d = torch.where(d == 0.0, 1e-7, d)
+    g = face_geom(verts, faces, None)
+    fd = d.gather(-1, faces.long().flatten(-2)).reshape(faces.shape)
+    pos = fd > 0.0
+    cross_edge = pos != torch.roll(pos, -1, dims=-1)
+    crossed = cross_edge.sum(dim=-1) == 2
+    fv = torch.stack([g.fvx, g.fvy, g.fvz], dim=-1)        # (..., F, 3, 3)
+    denom = fd - torch.roll(fd, -1, dims=-1)
+    denom = torch.where(torch.abs(denom) < 1e-30, 1.0, denom)
+    t = (fd / denom)[..., None]
+    p = fv + t * (torch.roll(fv, -1, dims=-2) - fv)        # per-slot points
+    slot = torch.argmax(cross_edge.to(torch.int8), dim=-1)
+    points = p.gather(-2, slot[..., None, None].expand(
+        slot.shape + (1, 3)))[..., 0, :]
+    return points, crossed

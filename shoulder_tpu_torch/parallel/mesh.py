@@ -10,6 +10,13 @@ cohort statistics combine across the mesh: each device reduces its shard
 to partial moments, and the partials meet on the mesh's first device (the
 JAX package's `psum`, as explicit copies of a few scalars).
 
+The same mesh carries data-parallel training of the articular UNet
+(models/unet_train.py: `train(mesh=)`, `dryrun`, `mesh_step`): a
+replica per device, the batch split by `shard_bones`, and the shards'
+gradients summed on the first device by explicit copies, which then
+copies the stepped parameters back.  There is no process group and no
+collectives library: one thread drives every device in turn.
+
 There is no CPU fallback: `bone_mesh()` is every CUDA device, and raises
 without one.  A mesh of CPU devices is built by naming them
 (`bone_mesh([torch.device("cpu")] * 4)`), as the tests do.

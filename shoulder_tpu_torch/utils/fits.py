@@ -1,8 +1,8 @@
 """Least-squares geometric fits (PyTorch, weight-mask aware).
 
 Port of shoulder_tpu/utils/fits.py: line and plane fits through the
-closed-form symmetric 3x3 eigensolver `eigh3`, the centred algebraic sphere
-fit, and the Halir-Flusser ellipse fit through the real-root Cardano
+closed-form symmetric 3x3 eigensolver `eigh3`, the Kasa circle fit, the
+centred algebraic sphere fit, and the Halir-Flusser ellipse fit through the real-root Cardano
 solver `_eig3`.  Every fit takes an optional per-point weight vector so
 masked point sets fit with static shapes, and leading batch dimensions
 (points (..., N, D), weights (..., N)), where the JAX package vmaps.
@@ -111,6 +111,26 @@ def fit_plane(pts, w=None):
     center, scatter = _scatter(pts, _weights(pts, w))
     _, vecs = eigh3(scatter)
     return center, vecs[..., 0]
+
+
+def fit_circle(pts2d, w=None):
+    """Least-squares (Kasa/Coope) circle fits of point sets (..., N, 2):
+    (cx, cy, r, residu), residu the weighted sum of squared radial
+    deviations (circle_fit.least_squares_circle's).  The JAX package
+    solves the weighted system by lstsq; this solves its normal
+    equations, on mean-centred points."""
+    w = _weights(pts2d, w)
+    mean = _weighted_mean(pts2d, w)
+    x, y = pts2d[..., 0] - mean[..., :1], pts2d[..., 1] - mean[..., 1:]
+    a = torch.stack([x, y, torch.ones_like(x)], dim=-1) * w[..., None]
+    b = (x**2 + y**2) * w
+    normal = gram(a, torch.cat([a, b[..., None]], dim=-1))
+    sol = torch.linalg.solve_ex(normal[..., :3], normal[..., 3]).result
+    cx, cy = sol[..., 0] / 2.0, sol[..., 1] / 2.0
+    r = torch.sqrt(sol[..., 2] + cx**2 + cy**2)
+    dist = torch.sqrt((x - cx[..., None]) ** 2 + (y - cy[..., None]) ** 2)
+    residu = torch.sum(w * (dist - r[..., None]) ** 2, dim=-1)
+    return cx + mean[..., 0], cy + mean[..., 1], r, residu
 
 
 def fit_sphere(pts, w=None):

@@ -18,6 +18,7 @@ from shoulder_tpu_torch.config import tiny_config
 from shoulder_tpu_torch.host import obb
 from shoulder_tpu_torch.io import ingest, native, stl
 from shoulder_tpu_torch.io.testdata import synthetic_humerus
+from shoulder_tpu_torch.models import ct_unet, unet
 from shoulder_tpu_torch.ops import chain_walk, marching_tets
 from shoulder_tpu_torch.ops import slicing as tsl
 from shoulder_tpu_torch.pipeline import ct
@@ -202,3 +203,33 @@ def test_native_ingest_on_the_card_host(card, tmp_path, monkeypatch):
         assert np.array_equal(getattr(got, name), getattr(want, name)), name
     assert np.abs(got.obb_transform - want.obb_transform).max() < 1e-6
     assert np.abs(np.subtract(got.z_bounds, want.z_bounds)).max() < 1e-6
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_cuda_bf16_conv_rounds_once(card, dims):
+    """The UNets' bf16 convolutions on the card round their output once
+    (models/unet._RoundOnce): at the bf16 floor of a float64 reference on
+    the same operands, and equal to the CPU's (oneDNN's) on all but the
+    outputs whose float32 sums fall on a rounding tie in another order."""
+    torch.manual_seed(dims)
+    if dims == 2:
+        conv = unet.CastConv2d(16, 16, 3, padding=(1, 0))
+        x = torch.randn(2, 16, 64, 66)
+    else:
+        conv = ct_unet.CastConv3d(8, 8, 3, padding=1)
+        x = torch.randn(1, 8, 16, 24, 24)
+    with torch.no_grad():
+        conv.bias.normal_(0.0, 1.0)
+        cpu = conv(x)
+        got = conv.to(card)(x.to(card)).cpu()
+    bf = torch.bfloat16
+    ref = conv.cpu()._conv_forward(x.to(bf).double(),
+                                   conv.weight.to(bf).double(),
+                                   conv.bias.to(bf).double())
+
+    def err(y):
+        return float((y.double() - ref).norm() / ref.norm())
+
+    assert got.dtype == bf
+    assert err(got) <= 1.01 * err(ref.to(bf))
+    assert float((got != cpu).double().mean()) < 1e-3

@@ -15,15 +15,26 @@ through `dice_bce_loss` and `backward` from models/params/unet.npz:
 
 For each it prints the loss, the whole gradient's relative L2 distance
 from the reference, the largest distance over the parameters, and (on
-the card) the ms of one forward and backward by CUDA events.  Then it
-profiles three default bf16 steps and prints the device kernels that
-take most of the time, by name.
+the card) the ms of one forward and backward by CUDA events.
+
+Then, where the card's bf16 gradient parts from the CPU's: every
+parameter's card-vs-CPU distance in bf16, from the head back (the order
+backward reaches the layers), beside each device's distance from its own
+float32 gradient; and each layer alone, forward and backward, from the
+same input and the same upstream gradient (both recorded in the CPU's
+bf16 step), on the card and on the CPU, each held against the same
+layer in float64 on the bf16-rounded operands.  That names the operation whose
+arithmetic differs: a bf16 convolution's weight or input gradient
+(cuDNN on the card), a GroupNorm backward (float32), or the casts around
+them.  Last it profiles three default bf16 steps and prints the device
+kernels that take most of the time, by name.
 
 Run:  python tools/grad_noise_torch.py [--batch 16] [--size 512] [--no-cpu]
 """
 
 import argparse
 import contextlib
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -31,6 +42,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch
+from torch import nn
 
 from shoulder_tpu_torch.models import unet, unet_train
 
@@ -83,6 +95,113 @@ def distance(got, ref):
     return float((x - y).norm() / y.norm()), rel[worst], worst
 
 
+def backward_order(model):
+    """(name, module) of the model's convolutions and group norms in the
+    order backward reaches them: the reverse of the forward's."""
+    names = {m: n for n, m in model.named_modules()}
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append(m))
+             for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.GroupNorm))]
+    with torch.no_grad():
+        model(torch.zeros((1, 1, 16, 16), device=next(model.parameters())
+                          .device))
+    for h in hooks:
+        h.remove()
+    return [(names[m], m) for m in reversed(seen)]
+
+
+def rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def per_parameter(flat, card_bf16, cpu_bf16, card_f32, cpu_f32, smi):
+    """Each parameter's card-vs-CPU bf16 distance, from the head back."""
+    model = unet.model_from_flat(flat, serving=False)
+    print(f"bf16 gradient per parameter, from the head back ({smi}): "
+          f"card vs cpu | card vs its float32 | cpu vs its float32")
+    rows = []
+    for name, mod in backward_order(model):
+        for p in ("weight", "bias"):
+            key = f"{name}.{p}"
+            row = (key, rel(card_bf16[key], cpu_bf16[key]),
+                   rel(card_bf16[key], card_f32[key]),
+                   rel(cpu_bf16[key], cpu_f32[key]))
+            rows.append(row)
+            print(f"  {key:28s} {row[1]:9.4g} | {row[2]:9.4g} | "
+                  f"{row[3]:9.4g}")
+    return rows
+
+
+def record_layers(flat, images, labels):
+    """The CPU's bf16 step, recording each layer's input and the gradient
+    of the loss with respect to its output: {name: (module, x, g)}."""
+    model = unet.model_from_flat(flat, torch.bfloat16, serving=False)
+    order = backward_order(model)
+    seen = {}
+
+    def hook(name):
+        def fwd(mod, inputs, out):
+            seen[name] = [mod, inputs[0].detach(), None]
+            out.register_hook(lambda g: seen[name].__setitem__(2, g))
+        return fwd
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in order]
+    loss = unet_train.dice_bce_loss(model, images, labels)
+    loss.backward()
+    for h in hooks:
+        h.remove()
+    return order, seen
+
+
+def layer_grads(mod, x, g, device, exact=False):
+    """(output, input gradient, weight gradient) of `mod` alone at input x and
+    upstream gradient g on `device`; `exact`: in float64 on the operands
+    the bf16 step rounded (the convolution's input and weight)."""
+    mod = copy.deepcopy(mod).to(device)
+    x, g = x.to(device), g.to(device)
+    if exact:
+        dt = getattr(mod, "compute_dtype", None)
+        if dt is not None:
+            x = x.to(dt)
+            with torch.no_grad():
+                for p in mod.parameters():
+                    p.copy_(p.to(dt))
+            mod.compute_dtype = torch.float64
+        mod, x, g = mod.double(), x.double(), g.double()
+    x = x.requires_grad_()
+    y = mod(x)
+    gx, gw = torch.autograd.grad(y, [x, mod.weight], g)
+    return y.detach(), gx, gw
+
+
+def per_layer(order, seen, card, smi):
+    """Each layer alone on the card and on the CPU against float64;
+    prints relative L2 errors of the output and of the input and weight
+    gradients, and the rounding floor of each."""
+    print(f"each layer alone (forward output, input and weight gradients), "
+          f"relative L2 from float64 on the "
+          f"same operands, from the head back ({smi}):\n"
+          f"  layer                        kind      | output card  cpu   "
+          f"floor | d input card  cpu   floor | d weight card  cpu   floor")
+    rows = []
+    for name, _ in order:
+        mod, x, g = seen[name]
+        ref = layer_grads(mod, x, g, card, exact=True)
+        got = {d: layer_grads(mod, x, g, d) for d in (card, "cpu")}
+        kind = ("bf16 conv" if isinstance(mod, unet.CastConv)
+                else "conv" if isinstance(mod, nn.Conv2d) else "groupnorm")
+        # a bf16 convolution's gradients are bf16 before their casts
+        fdt = getattr(mod, "compute_dtype", torch.float32)
+        err = [[rel(got[d][k].cpu(), ref[k].cpu()) for d in (card, "cpu")]
+               + [rel(ref[k].to(fdt).cpu(), ref[k].cpu())]
+               for k in (0, 1, 2)]
+        rows.append((name, kind, err))
+        print(f"  {name:28s} {kind:9s} | " + " | ".join(
+            " ".join(f"{e:8.3g}" for e in part) for part in err))
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=16)
@@ -119,13 +238,21 @@ def main():
         print(f"{name}: loss {loss:.6f}, whole gradient {whole:.3g} from the "
               f"reference, largest {worst:.3g} ({where}), {ms:.2f} ms per "
               f"forward and backward ({smi})")
+        if not flags:
+            card_bf16 = got
     if not args.no_cpu:
+        cpu = {}
         for name, dtype in (("cpu float32", torch.float32),
                             ("cpu bf16", torch.bfloat16)):
-            loss, got, _ = grads(flat, images, labels, "cpu", dtype)
-            whole, worst, where = distance(got, ref)
+            loss, cpu[dtype], _ = grads(flat, images, labels, "cpu", dtype)
+            whole, worst, where = distance(cpu[dtype], ref)
             print(f"{name}: loss {loss:.6f}, whole gradient {whole:.3g} from "
                   f"the reference, largest {worst:.3g} ({where})")
+        per_parameter(flat, card_bf16, cpu[torch.bfloat16], ref,
+                      cpu[torch.float32], smi)
+        order, seen = record_layers(flat, images.cpu(), labels.cpu())
+        per_layer(order, seen, dev, smi)
+        del seen
 
     # where a training step's device time goes
     model = unet.model_from_flat(flat, serving=False).to(dev)
