@@ -34,7 +34,10 @@ Phases (any failure raises, so the exit code is non-zero):
      bone 0's edge planes (above and below the bone, at exact vertex
      heights) and a k = 64 call that overflows: overflow and open_edges
      equal, contours and centroids within 1e-3 mm, areas within 0.01
-     mm^2; the rows whose best loop differs are counted; kernel and plain
+     mm^2; the rows whose best loop differs are counted; on the same
+     cases the kernel's own walk (its timed build hands it out) equal to
+     the plain walk of the plain compaction's rows, exactly (rows
+     compared and disagreement printed); kernel and plain
      times per stack of the batch (and the kernel's per stack of bone 0
      alone), and each stage's time inside a block from the kernel's
      timed build;
@@ -68,7 +71,8 @@ Phases (any failure raises, so the exit code is non-zero):
      CPU's on one threshold surface (equal count and weld, 1e-4 mm), the
      card's UNet against the CPU's (mask agreement >= 99.9 %), and each
      of the 3 batched launches equal to its 4 bones' own launches bit for
-     bit and to the batched plain composition with phase 5's tolerances;
+     bit and to the batched plain composition with phase 5's tolerances,
+     and its walk to the plain walk exactly, as in phase 5;
      per-volume times with the UNet's and marching tets' bounds, and the
      kernel's times at the CT sizes.
  10. training: a corpus of 8 random synthetic humeri by
@@ -398,9 +402,10 @@ def stack_args(args):
 
 
 def searched_keys(z_key, zs):
-    """Distinct z_key entries that the planes' binary searches read (the
-    kernel's searchsorted, side left): the top levels are the same keys
-    for every plane, and count once."""
+    """Distinct z_key entries that binary searches of the planes read
+    (searchsorted, side left): the least the window search needs, though
+    the kernel's block-wide count reads more.  The top levels are the same
+    keys for every plane, and count once."""
     keys, zs = z_key.cpu().numpy(), zs.cpu().numpy()
     a = np.zeros(zs.shape, np.int64)
     b = np.full(zs.shape, keys.shape[0], np.int64)
@@ -417,7 +422,7 @@ def searched_keys(z_key, zs):
 def slice_stack_work(sg, zs, interp_num, band, k):
     """Bytes and float operations the fused kernel needs for one stack,
     counted from these inputs: each z_mm row of the union of the planes'
-    windows, each fvt/ids row of a kept crossed face and each z_key entry
+    windows, each fvt/ids row of a kept crossed face, each z_key entry
     the binary searches touch and each cummax_z_max entry the overflow
     tests read (at lo - 1, lo > 0) read once, one z per plane; every
     output written once.  Operations: about 40 per kept face (segment,
@@ -744,6 +749,40 @@ def check_stacks(cases):
     return worst, d
 
 
+def fused_walk_check(cases):
+    """The fused kernel's own walk (its timed build's walk output) on each
+    (name, (sg, zs, interp_num, band, k)) case against the plain walk of
+    the plain compaction's rows (the successors after the injectivity
+    rule), exactly: n, and the face and the loop-start mark at every
+    position below n, and -1 past n.  Raises on a disagreement; returns
+    the rows compared and the largest disagreement (0)."""
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    total, worst = 0, 0
+    for name, (sg, zs, interp_num, band, k) in cases:
+        rows, dev = zs.numel(), zs.device
+        walk, n = (torch.empty((rows, k), dtype=torch.int32, device=dev),
+                   torch.empty((rows,), dtype=torch.int32, device=dev))
+        slicing.slice_stack_kernel(sg, zs, interp_num, band, k,
+                                   walk=(walk, n))
+        crossed, _s, _e, succ, *_ = slicing.compact_stack(sg, zs, band, k)
+        want = chain_walk.chain_walk_plain(
+            succ.reshape(rows, k).to(torch.int32).contiguous(),
+            crossed.reshape(rows, k).to(torch.int32).contiguous())
+        err = walk_disagreement((torch.where(walk >= k, walk - k, walk), n,
+                                 walk >= k), want)
+        past = torch.arange(k, device=dev) >= n[:, None].long()
+        tail = int((walk[past] != -1).sum())
+        log(f"fused walk vs plain walk, {name}: rows {rows} x {k}, visits "
+            f"{int(want[1].sum())}, disagreement {err}, entries past n "
+            f"other than -1: {tail}")
+        if err or tail:
+            raise AssertionError(f"the fused kernel's walk differs from the "
+                                 f"plain walk on {name}")
+        total, worst = total + rows, max(worst, err, tail)
+    return total, worst
+
+
 def same_tensor(got, want):
     """Equal shapes and values, NaN equal to NaN."""
     if got.is_floating_point():
@@ -841,6 +880,8 @@ def slice_kernel_phase(main_stacks, bone0_stacks, smi):
     worst, last = check_stacks(cases)
     if last["overflow_rows"] == 0:
         raise AssertionError("k = 64 did not overflow")
+    worst["walk_rows"], worst["walk_err"] = fused_walk_check(
+        [c[:2] for c in cases])
     log(f"slice-stack kernel vs plain, all {len(cases)} calls: {worst}")
     per_stack = {name: time_stack(f"batch {name}", args, smi)
                  for name, (args, _) in zip(STACKS, main_stacks)}
@@ -1076,6 +1117,8 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
     log(f"slice-stack: the {len(cases)} batched ct launches equal their "
         f"{n_bones} per-bone launches bit for bit")
     worst, _ = check_stacks(cases)
+    worst["walk_rows"], worst["walk_err"] = fused_walk_check(
+        [c[:2] for c in cases])
     log(f"slice-stack kernel vs plain, all {len(ct_stacks)} batched ct "
         f"stacks: {worst}")
     per_stack = {name: time_stack(f"ct batch {name}", a, smi)
@@ -2027,6 +2070,8 @@ def main(td):
         "rows_best_loop_differs": (worst["loop_differs"]
                                    + ct_worst["loop_differs"]
                                    + train_worst["loop_differs"]),
+        "walk_rows_compared": worst["walk_rows"] + ct_worst["walk_rows"],
+        "walk_disagreement": max(worst["walk_err"], ct_worst["walk_err"]),
         "ms": prox["ms"],
         "plain_ms": prox["plain_ms"],
         "bound_ms": prox["bound_ms"],

@@ -27,7 +27,8 @@
 // per block, so a 600-row stack spreads over all 132 SMs and each SM
 // overlaps the latency chains of its resident warps.  The warp stages the
 // row in shared memory and writes it back with coalesced loads and stores;
-// lane 0 walks (walk.cuh, the same walk the fused slice-stack kernel runs).
+// lane 0 walks (walk.cuh's walk_loops; the fused slice-stack kernel gets
+// the same walk by list ranking, walk_ranked).
 // The kernel is integer-only, so FMA contraction and float summation order
 // do not touch it.
 //

@@ -5,14 +5,14 @@
 // It replaces, on the card, the whole walk branch of ops/slicing.py's
 // slice_stack: the window search (_window_starts), the per-plane
 // compaction of crossed faces and their oriented segments
-// (_compact_slice), the contour-chain walk (walk.cuh, the body of the
-// Pallas kernel shoulder_tpu/ops/pallas_chain.py::_walk_kernel), and the
-// loop finish (_post_walk with _resample).  slice_stack's plain PyTorch
-// composition of those functions is this kernel's plain version: the
-// integer results (crossings, slots, successors, walk order, the chosen
-// loop and its roll) are computed by the same rules, and every float is
-// computed by the same expressions in the same order where the plain
-// version does elementwise work.
+// (_compact_slice), the contour-chain walk (the walk of the Pallas kernel
+// shoulder_tpu/ops/pallas_chain.py::_walk_kernel, here walk.cuh's
+// walk_ranked), and the loop finish (_post_walk with _resample).
+// slice_stack's plain PyTorch composition of those functions is this
+// kernel's plain version: the integer results (crossings, slots,
+// successors, walk order, the chosen loop and its roll) are computed by
+// the same rules, and every float is computed by the same expressions in
+// the same order where the plain version does elementwise work.
 //
 // Contract, for B bones of F faces each (padded to one F, SortedGeom
 // stacked on a leading bone dim) and S planes zs per bone: window `band`
@@ -34,48 +34,63 @@
 // (band, 2) z window (16 KB at band 2048) and gathers at most k rows of
 // fvt/ids (the 1.5 MB face table of a bone sits in L2), and writes
 // interp x 8 B of contour.  Inside a plane the stages are short and
-// dependent: a binary search, a compaction scan, the serial walk (about
-// 2 nc dependent shared-memory steps), scans over the walk and a
-// resampling search.  So a plane is latency, and the design keeps
-// everything between the stages in shared memory (nothing but the
-// inputs and the final outputs touches device memory) and runs one block
-// per plane, 200-600 blocks per bone and stack (4800 for the proximal
-// stack of a batch of 8) over the 132 SMs, several resident on each SM to
-// overlap their latency chains.
+// dependent, each ending in a barrier: a search, a compaction scan, the
+// walk, scans over the walk and a resampling search.  So a plane is
+// latency, and the design keeps everything between the stages in shared
+// memory (nothing but the inputs and the final outputs touches device
+// memory), gives every stage to the whole block (no stage leaves 255
+// threads waiting on one), and runs one block per plane, 200-600 blocks
+// per bone and stack (4800 for the proximal stack of a batch of 8) over
+// the 132 SMs, several resident on each SM to overlap their latency
+// chains.
 //
 // Stages of one block (256 threads):
-//   1. window: thread 0 binary-searches z_key (searchsorted, side left),
-//      clamps the window start lo and tests cummax_z_max[lo - 1] >= z;
-//   2. compaction: coalesced reads of the z window straight into the
-//      crossing test z_min < z <= z_max, one ballot scan per 256
-//      positions gives each crossed face its slot in window order; the
-//      inverse map window position -> slot is built in the same pass.
-//      The window is read once and not staged (cp.async / TMA): the
-//      stage takes 1.6-2.0 us of a block's 38-41 us on an H100, so
-//      staging could not buy more than that;
+//   1. window: the insertion point of z in z_key (searchsorted, side
+//      left) counted by the block: while more than kSearchKeys keys per
+//      thread are left, one strided probe per thread and
+//      __syncthreads_count narrow the range to one stride; then each
+//      thread counts its share (two dependent loads at 40,960 and 300,000
+//      faces; tests/test_torch_slice_kernel.py states it in PyTorch).
+//      The window start lo is clamped, and cummax_z_max[lo - 1] >= z
+//      tested;
+//   2. compaction: each warp reads a contiguous chunk of the z window,
+//      32 positions a step (coalesced), straight into the crossing test
+//      z_min < z <= z_max, each lane keeping its bits; one block scan of
+//      the warps' counts, then each warp replays its ballots to give each
+//      crossed face its slot in window order and build the inverse map
+//      window position -> slot, with one barrier.  The window is read once
+//      and not staged (cp.async / TMA): staging could save at most this
+//      stage's time;
 //   3. segments: one thread per slot gathers its fvt/ids row and computes
 //      the sign pattern, entry/exit edges and points, and the successor
 //      slot through the inverse map;
 //   4. injectivity: the smallest-slot predecessor keeps each successor
 //      (shared atomicMin on integers: the result does not depend on order);
-//   5. walk: thread 0, walk.cuh;
+//   5. walk: list ranking by the block (walk.cuh, walk_ranked): pointer
+//      jumping over the predecessor map left by stage 4, ceil(log2 nvalid)
+//      rounds of one barrier, then the loops' lengths, offsets (one block
+//      scan) and one scatter of the walk and each position's loop start;
 //   6. loop moments: block-wide inclusive scans over walk positions (warp
 //      shuffles, then the warp totals in warp order: a fixed order, so
-//      the result is deterministic; no float atomics anywhere), a max-scan
-//      for each position's loop start, the best loop by a (value, index)
-//      tree reduction, first index on ties;
+//      the result is deterministic; no float atomics anywhere), the best
+//      loop by a (value, index) tree reduction, first index on ties;
 //   7. roll: the loop's member with the smallest original face id leads;
 //   8. resample: a scan of segment lengths gives the knots' arc length;
 //      each sample binary-searches its knot max{i : ceil(cum_i/step) <= j}.
 //
 // Where a block's time goes.  The timed build (slice_stack_launch_timed)
 // stamps clock64 at each stage boundary; chip_smoke.py prints the per-stage
-// medians.  On an H100 at DEFAULT_CONFIG the serial walk takes 26-27 us of
-// 38-41 us, the window search 2.7 us (16 dependent key loads by one
-// thread), every other stage 0.5-2.9 us.  One bone's stack runs in one
-// wave, so its time is about one block's; a batch's stack runs in
-// ceil(B·S / resident blocks) waves (7 for the proximal stack of 8
-// bones), so the walk is what to shorten either way.
+// medians.  On an H100 at DEFAULT_CONFIG, in a batch of 8 (4800 blocks on
+// the proximal stack, 7 waves of 792), a block takes 18.5-19.6 us: walk
+// 4.9-5.4, compaction 1.7-2.8, segments 2.0-2.4, window 2.1, moments 2.0,
+// knots 1.8, resample 1.1-1.9, roll 1.0, injectivity 0.7; a bone alone
+// 11.7-16.5 us.  At the CT sizes (k 1024, band 6144) 20.3-22.2 us, walk
+// 4.3-5.7 and compaction 3.8-4.7.  No stage dominates and none waits on
+// one thread, but each still ends in a barrier, and six resident blocks
+// share the SM's warp schedulers and L1: every stage runs slower in the
+// batch than alone, so what is left is instructions and barriers across
+// all stages, not a serial stretch.  The bound counts bytes only (about
+// 7 us a stack); the kernel sits at 5-12 % of it.
 //
 // Numerics.  Built with -fmad=false (ops/kernels.py): nvcc would contract
 // a + t * b into an FMA, which PyTorch's separate elementwise kernels
@@ -85,11 +100,13 @@
 // with the plain version to rounding, not bit for bit.
 //
 // Shared memory per block: 64 k + 2 band + 20 bytes dynamic, 28.0 KB at
-// k 384 / band 2048, plus 256 B static; above 48 KB the launch opts in.
-// ptxas -v for sm_90a (chip_smoke.py prints it): 40 registers, a 48-byte
-// stack frame (the per-face vertex arrays) with a 4-byte spill.  So 6
-// blocks fit an SM at these sizes, 792 on an H100.  The timed build takes
-// 48 registers and no spill.
+// k 384 / band 2048 (76.0 KB at k 1024 / band 6144, 2 blocks per SM),
+// plus 240 B static; above 48 KB the launch opts in.  The walk's scratch
+// reuses arrays that are dead during it.  ptxas -v for sm_90a
+// (chip_smoke.py prints it): 40 registers, held there by
+// __launch_bounds__(256, 6) (without it 48, which fits 5 blocks), a 56-byte
+// stack frame with 16 bytes of spill stores; the timed build 40 registers
+// and no spill.  So 6 blocks fit an SM at k 384, 792 on an H100.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -102,7 +119,16 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// blocks resident per SM at k 384 / band 2048 (28.7 KB of shared memory
+// each): ptxas keeps the kernel within the 40 registers this leaves
+constexpr int kBlocksPerSm = 6;
 constexpr unsigned kFull = 0xffffffffu;
+// the window search counts the keys left by each thread directly once
+// there are at most this many per thread
+constexpr int kSearchKeys = 8;
+// window positions a lane tests in the compaction: one bit each of a
+// 64-bit mask, so band <= kThreads * kMaxRun
+constexpr int kMaxRun = 64;
 // The timed build of the kernel records, per block, clock64() at the start
 // and after each of the 9 stage boundaries below, then %globaltimer (ns) at
 // the start and the end, so that cycles convert to time.
@@ -183,25 +209,6 @@ __device__ void block_scan_sum(float (&v)[N], float (&total)[N],
   __syncthreads();
 }
 
-// Inclusive running max over the block in thread order, and the block max.
-__device__ int block_scan_max(int v, int* wbuf, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v = max(v, up);
-  }
-  if (lane == 31) wbuf[warp] = v;
-  __syncthreads();
-  int all = INT_MIN;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) v = max(v, wbuf[w]);
-    all = max(all, wbuf[w]);
-  }
-  *total = all;
-  __syncthreads();
-  return v;
-}
-
 // Block-wide (value, index) argmax: the largest value, the smallest index
 // among equal values.  Every thread gets the result.
 template <typename T>
@@ -254,7 +261,7 @@ __device__ __forceinline__ long long global_ns() {
 }
 
 template <bool kTimed>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 slice_stack_kernel(const float* __restrict__ fvt,
                    const int4* __restrict__ ids,
                    const float2* __restrict__ z_mm,
@@ -268,6 +275,8 @@ slice_stack_kernel(const float* __restrict__ fvt,
                    uint8_t* __restrict__ overflow,
                    uint8_t* __restrict__ open_edges,
                    long long* __restrict__ stamps,
+                   int32_t* __restrict__ walk_out,
+                   int32_t* __restrict__ n_out,
                    int n_faces, int band, int k, int interp) {
   // this block's bone and its row of the (B, S) outputs
   const int plane = blockIdx.x;
@@ -283,7 +292,7 @@ slice_stack_kernel(const float* __restrict__ fvt,
   // has finished the stage before
   auto stamp = [&](int i) {
     if constexpr (kTimed) {
-      if (threadIdx.x == 0) stamps[row * kStamps + i] = clock64();
+      if (threadIdx.x == 0 && stamps) stamps[row * kStamps + i] = clock64();
     }
   };
   long long ns0 = 0;
@@ -295,7 +304,7 @@ slice_stack_kernel(const float* __restrict__ fvt,
   __shared__ float wval_f[kWarps];
   __shared__ int wval_i[kWarps];
   __shared__ int widx[kWarps];
-  __shared__ int s_lo, s_win_over, s_nc, s_open, s_n;
+  __shared__ int s_nc, s_open;
 
   const Smem sm = carve(smem_raw, k);
   const int tid = threadIdx.x;
@@ -303,50 +312,80 @@ slice_stack_kernel(const float* __restrict__ fvt,
   const float z = zs[row];
 
   // ---- 1. window: slots [lo, lo + band) end at the insertion point of z
+  // (searchsorted, side left), the count of keys below z.  While more than
+  // kSearchKeys keys per thread are left, each thread tests one key at a
+  // stride and the block's count of keys below z narrows the range to one
+  // stride; then each thread counts its share of the rest.
+  int a0 = 0, span = n_faces;
+  while (span > kThreads * kSearchKeys) {
+    const int stride = (span + kThreads - 1) / kThreads;
+    const int i = a0 + (tid + 1) * stride - 1;
+    const int below = __syncthreads_count(i < a0 + span && z_key[i] < z);
+    const int a1 = a0 + below * stride;
+    span = min(stride - 1, a0 + span - a1);
+    a0 = a1;
+  }
+  int warp_below = 0;
+  for (int i = a0 + tid; i < a0 + span; i += kThreads) {
+    warp_below += z_key[i] < z;
+  }
+  warp_below = __reduce_add_sync(kFull, warp_below);
+  if (lane == 0) widx[warp] = warp_below;
+  for (int j = tid; j <= k; j += kThreads) sm.fpred[j] = k;
   if (tid == 0) {
-    int a = 0, b = n_faces;
-    while (a < b) {
-      const int mid = (a + b) >> 1;
-      if (z_key[mid] < z) a = mid + 1; else b = mid;
-    }
-    const int lo = max(0, min(a - band, n_faces - band));
-    s_lo = lo;
-    s_win_over = lo > 0 && cummax_z_max[lo - 1] >= z;
     s_nc = 0;
     s_open = 0;
   }
-  for (int j = tid; j <= k; j += kThreads) sm.fpred[j] = k;
   __syncthreads();
+  for (int w = 0; w < kWarps; ++w) a0 += widx[w];
+  const int lo = max(0, min(a0 - band, n_faces - band));
+  // the window overflow test's key: thread 0 loads it now and tests it
+  // after stage 2, so the load's latency overlaps the compaction
+  const float below_max = tid == 0 && lo > 0 ? cummax_z_max[lo - 1] : 0.0f;
   stamp(1);
-  const int lo = s_lo;
 
-  // ---- 2. crossing test and stable compaction into slots [0, min(ncross, k))
-  int ncross = 0;  // the same in every thread
-  for (int r0 = 0; r0 < band; r0 += kThreads) {
-    const int i = r0 + tid;
+  // ---- 2. crossing test and stable compaction into slots [0, min(ncross, k)):
+  // each warp takes a contiguous chunk of the window and reads it 32
+  // positions at a time (coalesced), each lane keeping its crossing bits;
+  // one block scan of the warps' counts gives each chunk its first slot;
+  // each warp then replays its ballots to slot its faces in window order
+  const int chunk = ((band + kWarps - 1) / kWarps + 31) & ~31;
+  const int iters = chunk / 32;  // <= kMaxRun: band <= kThreads * kMaxRun
+  const int w0 = warp * chunk + lane;
+  unsigned long long bits = 0ull;
+  int warp_crossed = 0;
+  for (int j = 0; j < iters; ++j) {
+    const int i = w0 + j * 32;
     bool c = false;
     if (i < band) {
       const float2 mm = z_mm[lo + i];
       c = (mm.y >= z) && (mm.x < z);
     }
-    const unsigned bal = __ballot_sync(kFull, c);
-    if (lane == 0) wint[warp] = __popc(bal);
-    __syncthreads();
-    int before = ncross, all = ncross;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w == warp) before = all;
-      all += wint[w];
-    }
-    const int slot = before + __popc(bal & ((1u << lane) - 1u));
-    const bool kept = c && slot < k;
-    if (i < band) sm.inv[i] = kept ? static_cast<int16_t>(slot) : int16_t(-1);
-    if (kept) sm.pos[slot] = i;
-    ncross = all;
-    __syncthreads();
+    bits |= static_cast<unsigned long long>(c) << j;
+    warp_crossed += __popc(__ballot_sync(kFull, c));
   }
+  if (lane == 0) wint[warp] = warp_crossed;
+  __syncthreads();
+  int slot = 0, ncross = 0;  // ncross: the same in every thread
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) slot += wint[w];
+    ncross += wint[w];
+  }
+  for (int j = 0; j < iters; ++j) {
+    const int i = w0 + j * 32;
+    const bool c = (bits >> j) & 1ull;
+    const unsigned bal = __ballot_sync(kFull, c);
+    const int at = slot + __popc(bal & ((1u << lane) - 1u));
+    const bool kept = c && at < k;
+    if (i < band) sm.inv[i] = kept ? static_cast<int16_t>(at) : int16_t(-1);
+    if (kept) sm.pos[at] = i;
+    slot += __popc(bal);
+  }
+  __syncthreads();
   stamp(2);
   const int nvalid = min(ncross, k);
   const bool over = ncross > k;
+  const bool win_over = lo > 0 && below_max >= z;  // thread 0's is read
 
   // ---- 3. segments of the compact slots and their successor slots
   int my_nc = 0;
@@ -406,21 +445,22 @@ slice_stack_kernel(const float* __restrict__ fvt,
   __syncthreads();
   stamp(4);
 
-  // ---- 5. walk
-  if (tid == 0) s_n = walk_loops(sm.work, sm.walk, s_nc, k);
-  __syncthreads();
+  // ---- 5. walk: list ranking by the whole block (walk.cuh) over the
+  // nvalid slots, in buffers that are dead until stage 6: the two window
+  // arrays over closed and cum_a..cum_y, the loop lengths over knot_cum.
+  // It also writes each walk position's loop start into pos.
+  const int n = walk_ranked<kThreads>(
+      sm.work, sm.fpred, nvalid, s_nc, k, reinterpret_cast<uint2*>(sm.closed),
+      reinterpret_cast<uint2*>(sm.cum_a),
+      reinterpret_cast<int32_t*>(sm.knot_cum), wint, sm.walk, sm.pos);
   stamp(5);
-  const int n = s_n;
 
-  // ---- 6. loop moments in walk order, and each position's loop start
+  // ---- 6. loop moments in walk order
   float carry[3] = {0.0f, 0.0f, 0.0f};
-  int start_carry = -1;
   for (int r0 = 0; r0 < k; r0 += kThreads) {
     const int p = r0 + tid;
     float v[3] = {0.0f, 0.0f, 0.0f};
-    int head = -1;
     if (p < n) {
-      if (sm.walk[p] >= k) head = p;
       const int f = walk_face(sm.walk, p, k);
       const float2 s = sm.st[f], e = sm.en[f];
       const float cr2 = s.x * e.y - e.x * s.y;
@@ -430,16 +470,12 @@ slice_stack_kernel(const float* __restrict__ fvt,
     }
     float tot[3];
     block_scan_sum<3>(v, tot, wsum);
-    int round_max;
-    const int start = max(block_scan_max(head, wint, &round_max), start_carry);
     if (p < k) {
       sm.cum_a[p] = carry[0] + v[0];
       sm.cum_x[p] = carry[1] + v[1];
       sm.cum_y[p] = carry[2] + v[2];
-      sm.pos[p] = start;
     }
     for (int c = 0; c < 3; ++c) carry[c] = carry[c] + tot[c];
-    start_carry = max(start_carry, round_max);
   }
   __syncthreads();
 
@@ -462,7 +498,7 @@ slice_stack_kernel(const float* __restrict__ fvt,
   stamp(6);
 
   const bool is_end = e < n && (e == n - 1 || sm.walk[e + 1] >= k);
-  const int sor_e = sm.pos[e];
+  const int sor_e = is_end ? sm.pos[e] : 0;
   const float ba = sor_e > 0 ? sm.cum_a[sor_e - 1] : 0.0f;
   const float bx = sor_e > 0 ? sm.cum_x[sor_e - 1] : 0.0f;
   const float by = sor_e > 0 ? sm.cum_y[sor_e - 1] : 0.0f;
@@ -551,15 +587,21 @@ slice_stack_kernel(const float* __restrict__ fvt,
         : make_float2(0.0f, 0.0f);
     areas[row] = area_best;
     total_areas[row] = 0.5f * carry[0];
-    overflow[row] = (s_win_over || over) ? 1 : 0;
+    overflow[row] = (win_over || over) ? 1 : 0;
     open_edges[row] = (s_open && !over) ? 1 : 0;
   }
   if constexpr (kTimed) {
     __syncthreads();
     stamp(9);
-    if (tid == 0) {
+    if (tid == 0 && stamps) {
       stamps[row * kStamps + 10] = ns0;
       stamps[row * kStamps + 11] = global_ns();
+    }
+    if (walk_out) {  // the walk, head marks included; -1 past n
+      for (int p = tid; p < k; p += kThreads) {
+        walk_out[row * k + p] = p < n ? sm.walk[p] : -1;
+      }
+      if (tid == 0) n_out[row] = n;
     }
   }
 }
@@ -569,16 +611,17 @@ int launch(const float* fvt, const int32_t* ids, const float* z_mm,
            const float* z_key, const float* cummax_z_max, const float* zs,
            float* contours, float* centroids, float* areas,
            float* total_areas, uint8_t* overflow, uint8_t* open_edges,
-           long long* stamps, int n_faces, int n_bones, int n_planes,
-           int band, int k, int interp, int device, void* stream) {
+           long long* stamps, int32_t* walk_out, int32_t* n_out,
+           int n_faces, int n_bones, int n_planes, int band, int k,
+           int interp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_planes <= 0 || n_bones <= 0) return 0;
   // the wrapper holds band and k to its limits; this guards the memory
-  // the kernel indexes: int16 slot ids, a window inside the faces, a
-  // bone per grid row (at most 65535)
-  if (k < 1 || k > INT16_MAX || band < k || band > n_faces || interp < 2 ||
-      n_bones > 65535) {
+  // the kernel indexes: int16 slot ids, a window inside the faces and
+  // within the compaction's runs, a bone per grid row (at most 65535)
+  if (k < 1 || k > INT16_MAX || band < k || band > n_faces ||
+      band > kThreads * kMaxRun || interp < 2 || n_bones > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(band, k);
@@ -594,8 +637,8 @@ int launch(const float* fvt, const int32_t* ids, const float* z_mm,
       fvt, reinterpret_cast<const int4*>(ids),
       reinterpret_cast<const float2*>(z_mm), z_key, cummax_z_max, zs,
       reinterpret_cast<float2*>(contours), reinterpret_cast<float2*>(centroids),
-      areas, total_areas, overflow, open_edges, stamps, n_faces, band, k,
-      interp);
+      areas, total_areas, overflow, open_edges, stamps, walk_out, n_out,
+      n_faces, band, k, interp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,25 +682,28 @@ int slice_stack_launch(const float* fvt, const int32_t* ids, const float* z_mm,
                        void* stream) {
   return launch<false>(fvt, ids, z_mm, z_key, cummax_z_max, zs, contours,
                        centroids, areas, total_areas, overflow, open_edges,
-                       nullptr, n_faces, n_bones, n_planes, band, k, interp,
-                       device, stream);
+                       nullptr, nullptr, nullptr, n_faces, n_bones, n_planes,
+                       band, k, interp, device, stream);
 }
 
-// The same launch of the timed build: it also writes kStamps int64 per
-// block into `stamps` (B·S x 12, row bone * S + plane: clock64 at the
-// start and after each stage, then %globaltimer at the start and the
-// end).  For measurement only; the main path never calls it.
+// The same launch of the timed build, for measurement only; the main path
+// never calls it.  Where `stamps` is not null it writes kStamps int64 per
+// block there (B·S x 12, row bone * S + plane: clock64 at the start and
+// after each stage, then %globaltimer at the start and the end); where
+// `walk_out` is not null, each block's walk into its row of walk_out
+// (B·S x k int32: the face at each walk position, +k at a loop's head, -1
+// at and past n) and n into n_out (B·S int32).
 int slice_stack_launch_timed(
     const float* fvt, const int32_t* ids, const float* z_mm,
     const float* z_key, const float* cummax_z_max, const float* zs,
     float* contours, float* centroids, float* areas, float* total_areas,
-    uint8_t* overflow, uint8_t* open_edges, long long* stamps, int n_faces,
-    int n_bones, int n_planes, int band, int k, int interp, int device,
-    void* stream) {
+    uint8_t* overflow, uint8_t* open_edges, long long* stamps,
+    int32_t* walk_out, int32_t* n_out, int n_faces, int n_bones,
+    int n_planes, int band, int k, int interp, int device, void* stream) {
   return launch<true>(fvt, ids, z_mm, z_key, cummax_z_max, zs, contours,
                       centroids, areas, total_areas, overflow, open_edges,
-                      stamps, n_faces, n_bones, n_planes, band, k, interp,
-                      device, stream);
+                      stamps, walk_out, n_out, n_faces, n_bones, n_planes,
+                      band, k, interp, device, stream);
 }
 
 }  // extern "C"

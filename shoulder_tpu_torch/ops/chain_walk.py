@@ -5,8 +5,8 @@ kernel `_walk_kernel` behind `chain_walk_marked`).  The kernel is
 csrc/chain_walk.cu around the walk of csrc/walk.cuh, part of the port's
 one kernel library (ops/kernels.py: nvcc for sm_90a at first use, bound
 through ctypes).  The main path's slice stacks walk inside the fused
-slice-stack kernel (csrc/slice_stack.cu), which runs the same walk.cuh;
-this entry point is the walk on its own.
+slice-stack kernel (csrc/slice_stack.cu); this entry point is the walk on
+its own.
 
 Contract, for (R, K) int32 `succ` and `crossed` (crossed faces packed at
 the front of each row): walk every contour loop of every row in successor
@@ -18,6 +18,11 @@ where a position begins a loop.  Positions at or past n hold 0 / False.
 `chain_walk_marked` runs the plain PyTorch walk for a tensor on the CPU
 and the CUDA kernel for a tensor on the card; it never falls back from one
 to the other.  `launch_count` counts kernel launches.
+
+The fused kernel walks by list ranking instead (walk.cuh's `walk_ranked`,
+the whole block at once), which gives the same walk wherever chains
+cannot merge, as its injectivity stage ensures
+(tests/test_torch_walk_ranked.py holds its plain model).
 """
 
 from __future__ import annotations
@@ -115,3 +120,4 @@ def chain_walk_plain(succ: torch.Tensor, crossed: torch.Tensor):
         cur = torch.where(active, torch.where(ok, nxt, -1), cur)
     return order[:, :k].contiguous(), n.to(torch.int32), \
         is_start[:, :k].contiguous()
+

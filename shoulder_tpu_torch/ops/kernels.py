@@ -106,7 +106,7 @@ def library():
         lib.chain_walk_max_k.restype = i32
         lib.slice_stack_launch.argtypes = [ptr] * 12 + [i32] * 7 + [ptr]
         lib.slice_stack_launch.restype = i32
-        lib.slice_stack_launch_timed.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
+        lib.slice_stack_launch_timed.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
         lib.slice_stack_launch_timed.restype = i32
         lib.slice_stack_smem_bytes.argtypes = [i32, i32]
         lib.slice_stack_smem_bytes.restype = ctypes.c_longlong

@@ -55,7 +55,6 @@ KERNEL_MAX_BAND = 16384
 KERNEL_MAX_BONES = 65535  # the launch's grid y dimension: one bone each
 STAGES = ("window", "compaction", "segments", "injectivity", "walk",
           "moments", "roll", "knots", "resample")  # timed kernel's stages
-
 launch_count = 0  # slice-stack kernel launches since the caller reset it
 
 
@@ -470,23 +469,32 @@ def check_kernel_args(sg: SortedGeom, zs, interp_num: int, band: int,
                          f"{KERNEL_MAX_BONES}")
 
 
+def _check_out(name, t, dtype, shape, zs):
+    if (t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous() or t.device != zs.device):
+        raise ValueError(f"{name} must be a contiguous {shape} {dtype} "
+                         f"tensor beside zs")
+
+
 def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
-                       k: int, stamps=None) -> SliceStack:
+                       k: int, stamps=None, walk=None) -> SliceStack:
     """One launch of csrc/slice_stack.cu over all planes zs (B, S) of a
     bone batch (or (S,) of one bone; CUDA tensors; band and k already
     clamped).  Raises on arguments the kernel does not take, on a failed
     build and on a refused launch.
 
-    With `stamps`, a (B·S, 12) int64 tensor, it launches the kernel's
-    timed build, which writes each block's stage clocks there
-    (`stage_times`)."""
+    With `stamps`, a (B·S, 12) int64 tensor, or `walk`, a pair of int32
+    tensors (B·S, k) and (B·S,), it launches the kernel's timed build,
+    which writes each block's stage clocks into `stamps` (`stage_times`)
+    and each block's walk into `walk`: the face at each walk position,
+    +k where a loop starts, -1 at and past n, and n."""
     check_kernel_args(sg, zs, interp_num, band, k)
-    if stamps is not None and (stamps.dtype != torch.int64
-                               or stamps.shape != (zs.numel(), 12)
-                               or not stamps.is_contiguous()
-                               or stamps.device != zs.device):
-        raise ValueError("stamps must be a contiguous (B·S, 12) int64 "
-                         "tensor beside zs")
+    rows = zs.numel()
+    if stamps is not None:
+        _check_out("stamps", stamps, torch.int64, (rows, 12), zs)
+    if walk is not None:
+        _check_out("walk[0]", walk[0], torch.int32, (rows, k), zs)
+        _check_out("walk[1]", walk[1], torch.int32, (rows,), zs)
     if zs.device.type != "cuda":
         raise ValueError(f"the slice-stack kernel runs on CUDA tensors, not "
                          f"{zs.device}")
@@ -504,9 +512,11 @@ def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
             total_areas.data_ptr(), overflow.data_ptr(),
             open_edges.data_ptr()]
     launcher = lib.slice_stack_launch
-    if stamps is not None:
+    if stamps is not None or walk is not None:
         launcher = lib.slice_stack_launch_timed
-        outs.append(stamps.data_ptr())
+        outs += [None if stamps is None else stamps.data_ptr(),
+                 *((None, None) if walk is None
+                   else (walk[0].data_ptr(), walk[1].data_ptr()))]
     rc = launcher(
         sg.fvt.data_ptr(), sg.ids.data_ptr(), sg.z_mm.data_ptr(),
         sg.z_key.data_ptr(), sg.cummax_z_max.data_ptr(), zs.data_ptr(),

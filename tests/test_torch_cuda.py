@@ -127,6 +127,45 @@ def test_cuda_kernel_matches_plain_slice_stack(card, tiny_bone, stack):
     assert np.allclose(got.contours[ok], want.contours[ok], atol=1e-3)
 
 
+@pytest.mark.parametrize("stack", STACKS + ["k64"])
+def test_cuda_kernel_walk_matches_plain_walk(card, tiny_bone, stack):
+    """The fused kernel's own walk (its timed build hands it out) equals
+    the plain walk of the plain compaction's rows exactly: n, the face and
+    the loop-start mark below n, -1 past n; k 64 overflows."""
+    spec = ingest.load_bone(tiny_bone, config=CFG)
+    v_obb = geom.transform_pts(torch.as_tensor(spec.vertices),
+                               torch.as_tensor(spec.obb_transform,
+                                               dtype=torch.float32))
+    sg = tsl.sorted_geom(*(torch.as_tensor(a, device=card) for a in (
+        v_obb.numpy(), spec.faces, spec.neighbors, spec.face_orig)))
+    sset = getattr(CFG, "full" if stack == "k64" else stack)
+    zhi, zlo = float(v_obb[:, 2].max()), float(v_obb[:, 2].min())
+    zs = torch.cat([
+        torch.linspace(0.99 * zhi, 0.99 * zlo, sset.zslice_num),
+        torch.as_tensor(_edge_planes(v_obb.numpy(), spec.n_verts)),
+    ]).to(card)
+    band = min(sset.band, sg.z_key.shape[0])
+    k = 64 if stack == "k64" else min(CFG.slice_compact_k, band)
+    rows = zs.numel()
+    walk = torch.empty((rows, k), dtype=torch.int32, device=card)
+    n = torch.empty((rows,), dtype=torch.int32, device=card)
+    tsl.slice_stack_kernel(sg, zs, sset.interp_num, band, k, walk=(walk, n))
+    crossed, _s, _e, succ, _o, over, _open = tsl.compact_stack(sg, zs, band,
+                                                               k)
+    order, want_n, is_start = chain_walk.chain_walk_plain(
+        succ.to(torch.int32).contiguous(), crossed.to(torch.int32).contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(n, want_n)
+    below = torch.arange(k, device=card) < n[:, None].long()
+    assert torch.equal(torch.where(below, walk % k, 0),
+                       torch.where(below, order, 0))
+    assert torch.equal(below & (walk >= k), below & is_start)
+    assert bool((walk[~below] == -1).all())
+    assert int(n.sum()) > 10 * rows
+    if stack == "k64":
+        assert bool(over.any())
+
+
 def test_cuda_batched_launch_equals_per_bone_launches(card, tmp_path):
     """Three distinct bones in one launch (one block per (bone, plane))
     give each bone what its own launch gives, bit for bit, and agree with

@@ -9,7 +9,9 @@ wrapper's argument checks and the port's own forest file are checked
 here too.  The kernel itself runs only on a card (`cuda` marker).
 """
 
+import re
 import subprocess
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -238,6 +240,106 @@ def test_timed_launch_checks_its_stamps(geoms):
     with pytest.raises(ValueError, match="stamps"):
         tsl.slice_stack_kernel(tsg, zs, 64, 512, 384,
                                stamps=torch.zeros(5, 11, dtype=torch.int64))
+
+
+def test_timed_launch_checks_its_walk(geoms):
+    tsg = geoms[2]
+    zs = torch.linspace(1.0, -1.0, 5)
+    i32 = dict(dtype=torch.int32)
+    for walk in ((torch.zeros(5, 383, **i32), torch.zeros(5, **i32)),
+                 (torch.zeros(5, 384, **i32), torch.zeros(5, dtype=torch.int64)),
+                 (torch.zeros(384, 5, **i32).t(), torch.zeros(5, **i32))):
+        with pytest.raises(ValueError, match="walk"):
+            tsl.slice_stack_kernel(tsg, zs, 64, 512, 384, walk=walk)
+
+
+def _kernel_constant(name):
+    """An int constexpr of csrc/slice_stack.cu, so the plain statement of
+    its search below follows the kernel's own block size."""
+    src = (kernels.CSRC / "slice_stack.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def window_count(z_key, zs):
+    """The slice-stack kernel's window search (stage 1) in plain PyTorch:
+    the insertion point of each plane of zs (..., S) in its bone's sorted
+    keys z_key (..., F), side left, found as the count of keys below it.
+    While more than `keys` keys per thread are left, each of the block's
+    `threads` threads tests one key at a stride and the count of keys
+    below the plane narrows the range to one stride; then the threads
+    count what is left."""
+    threads = _kernel_constant("kThreads")
+    keys = _kernel_constant("kSearchKeys")
+    n_faces = z_key.shape[-1]
+
+    def below(idx, ok):  # keys below the plane among idx (..., S, m) if ok
+        at = torch.where(ok, idx, 0).reshape(zs.shape[:-1] + (-1,))
+        got = z_key.gather(-1, at).reshape(idx.shape)
+        return ((got < zs[..., None]) & ok).sum(dim=-1)
+
+    a0 = torch.zeros(zs.shape, dtype=torch.int64)
+    span = torch.full(zs.shape, n_faces, dtype=torch.int64)
+    lanes = torch.arange(1, threads + 1)
+    while bool((live := span > threads * keys).any()):
+        stride = (span + threads - 1) // threads
+        idx = a0[..., None] + lanes * stride[..., None] - 1
+        ok = live[..., None] & (idx < (a0 + span)[..., None])
+        a1 = a0 + below(idx, ok) * stride
+        span = torch.where(live, torch.minimum(stride - 1, a0 + span - a1),
+                           span)
+        a0 = torch.where(live, a1, a0)
+    idx = a0[..., None] + torch.arange(threads * keys)
+    return a0 + below(idx, idx < (a0 + span)[..., None])
+
+
+def _search_cases(tsg):
+    """(z_key (2, F), cummax_z_max (2, F), zs (2, S)) at growing F: the
+    tiny bone's keys, then the same keys on 0.5 mm steps (ties); the
+    second bone of each pair is shorter, its tail +inf as in a padded
+    batch; planes above, below, at exact key values and between."""
+    keys, cmax = tsg.z_key, tsg.cummax_z_max
+    n = int(torch.isfinite(keys).sum())
+    keys, cmax = keys[:n], cmax[:n]
+    tied = torch.round(keys * 2.0) / 2.0
+    rng = np.random.default_rng(5)
+    for base in (keys, tied):
+        lo, hi = float(base[0]), float(base[-1])
+        zs = torch.cat([torch.tensor([hi + 5.0, hi, lo, lo - 1.0]),
+                        base[rng.integers(0, n, 12)],
+                        torch.as_tensor(rng.uniform(lo, hi, 8),
+                                        dtype=torch.float32)])
+        for n_faces in (1500, n, 40960, 300000, 600000):
+            pad = torch.full((max(n_faces - n, 0),), float("inf"))
+            k1 = torch.cat([base, pad])[:n_faces]
+            k2 = k1.clone()
+            k2[n_faces * 3 // 5:] = float("inf")
+            c1 = torch.cat([cmax, cmax[-1:].expand(pad.shape[0])])[:n_faces]
+            yield (torch.stack([k1, k2]), torch.stack([c1, c1]),
+                   torch.stack([zs, zs.flip(0)]).contiguous())
+
+
+def test_window_count_is_searchsorted_side_left(geoms):
+    """The kernel's window search (`window_count`: strided probes counted
+    by the block, then a direct count) gives searchsorted's
+    insertion point, and so `_window_starts`'s and the JAX package's
+    windows and overflow flags, on edge planes, ties, +inf-padded bones and
+    face counts that take zero, one and two probe levels."""
+    band = 512
+    for keys, cmax, zs in _search_cases(geoms[2]):
+        count = window_count(keys, zs)
+        assert torch.equal(count, torch.searchsorted(keys, zs, side="left"))
+        sg = types.SimpleNamespace(z_key=keys, cummax_z_max=cmax)
+        lo, starts, over = tsl._window_starts(sg, zs, band)
+        assert torch.equal(count, starts)
+        for b in range(2):
+            jsg = types.SimpleNamespace(z_key=jnp.asarray(keys[b].numpy()),
+                                        cummax_z_max=jnp.asarray(
+                                            cmax[b].numpy()))
+            j_lo, j_starts, j_over = jsl._window_starts(
+                jsg, jnp.asarray(zs[b].numpy()), band)
+            assert np.array_equal(count[b].numpy(), np.asarray(j_starts))
+            assert np.array_equal(lo[b].numpy(), np.asarray(j_lo))
+            assert np.array_equal(over[b].numpy(), np.asarray(j_over))
 
 
 def test_port_forest_npz_equals_the_jax_package_file():
