@@ -10,10 +10,13 @@ Phases (any failure raises, so the exit code is non-zero):
      ingest (csrc/ingest.cpp, csrc/obb.cpp; io/native.py), and a failed
      build of either fails the run;
   3. walk kernel vs plain: the standalone walk kernel (csrc/chain_walk.cu)
-     against its plain PyTorch version on random loop rows, an empty
-     slice, and the real (succ, crossed) rows of bone 0's three slice
-     stacks (made by the plain compaction on the card): exact equality of
-     n, is_start and order[:n]; both timed at the proximal stack's shape;
+     against its plain PyTorch version on random loop rows, rows whose
+     chains merge, cycle, leave nc or the row or reach a negative
+     successor, an empty slice, and the real (succ, crossed) rows of bone
+     0's three slice stacks (made by the plain compaction on the card):
+     exact equality of n, is_start and order[:n]; both timed at the
+     proximal stack's shape (600 x 384) and at 8 bones' rows (4800 x
+     384), with the bound;
   4. pipeline: ingest 8 synthetic humeri (4 left, 4 right) with the port's
      own native ingest, bone 0 also through the numpy oracle
      (load_indexed's arrays and the BoneSpec's vertices, faces, neighbors
@@ -24,8 +27,9 @@ Phases (any failure raises, so the exit code is non-zero):
      1 mm of the constructed neck-shaft angle, retroversion and head
      radius, with no slice overflow; the fused slice-stack kernel must
      have been launched exactly once per stack for the whole batch (3),
-     the standalone walk never, and the plain compaction once, for the
-     batch's surgical-neck planes; one bone runs again on the CPU (plain
+     the raw-loop kernel (csrc/slice_raw.cu) once for the batch's
+     surgical-neck planes, the standalone walk and the plain compaction
+     never; one bone runs again on the CPU (plain
      composition) and must agree within 0.75 deg / 0.75 mm, bench.py's
      gate;
   5. slice-stack kernel vs plain: each of phase 4's three batched
@@ -41,23 +45,39 @@ Phases (any failure raises, so the exit code is non-zero):
      times per stack of the batch (and the kernel's per stack of bone 0
      alone), and each stage's time inside a block from the kernel's
      timed build;
+ 5b. raw-loop kernel vs plain: phase 4's batched launch equals its 8
+     bones' own launches bit for bit; on phase 4's 8 surgical-neck planes
+     (central, as the path calls it, and largest), bone 0's edge planes
+     (both selects) and the 8 planes at k 24 (every plane overflows) the
+     kernel against the plain composition on the card: n, overflow and
+     the loop equal (area within 0.01 mm^2, centroid within 1e-3 mm; the
+     planes whose loop differs counted, none allowed), points within
+     1e-5 mm (bit for bit expected: the largest difference printed);
+     kernel and plain times of phase 4's call and its bound;
   6. timing: a batch of 1 and a batch of 8 at DEFAULT_CONFIG with the
      UNet, each profiled once (kernel launches: the profiler's
-     cudaLaunchKernel and every launch API call, plus the slice-stack
-     launches it does not count; device busy time and idle share),
-     once under torch.cuda.set_sync_debug_mode("warn") (synchronizing
-     calls counted), and 5 warm synchronized runs (p50, and the peak
-     memory above what was resident before them); launches per batch of
-     8 at most 1.25x a batch of 1's, synchronizing calls no more; the
+     cudaLaunchKernel and every launch API call, plus the port's own
+     kernels' launches, which it does not count; device busy time and
+     idle share), twice under torch.cuda.set_sync_debug_mode("warn")
+     (the second run's synchronizing calls counted: a process's first run
+     so watched counts one more), and 5 warm synchronized runs (p50,
+     and the peak memory above what was resident before them); each batch
+     also profiled and counted with the plain raw loop the parent tree ran
+     on the card, and 6 synchronized runs of each timed in turns (plain,
+     kernel, kernel, plain, ...), both printed, the kernel's
+     synchronizing calls no more than the plain one's; launches per batch
+     of 8 at most 1.25x a batch of 1's, synchronizing calls no more; the
      largest batch the card holds, linear in B from the two peaks;
   7. facade: the README flow through shoulder_tpu_torch.Humerus on the card
      (canal on z through the origin, metrics equal to phase 4's bone 0
      within 0.05 deg / 0.05 mm), the osteotomy probes, a plot, the three
      slice views, and a ProximalHumerus checked against the same bone on
-     the CPU; slice-stack launches 3 / 3 / 2, walk launches 0;
+     the CPU; (slice-stack, raw-loop) launches (3, 1) / (3, 0) / (2, 1),
+     walk launches 0;
   8. cohort: process_cohort over the 8 STLs in batches of 4 (two batches,
      one prefetch); each bone equal to phase 4 within 0.05 deg / 0.05 mm;
-     6 slice-stack launches (3 per batch), no walk launch.
+     6 slice-stack launches (3 per batch), 2 raw-loop launches, no walk
+     launch.
   9. CT: four 1.0 mm CT volumes (320 x 144 x 144, 2 left and 2 right)
      from pipeline.ct.synth_ct_volume through the 3D UNet, marching tets
      and the weld on the card and host, then one compute_landmarks_batch
@@ -67,18 +87,21 @@ Phases (any failure raises, so the exit code is non-zero):
      3.5 deg / 4.5 deg / 1.5 mm / 1.5 mm (neck-shaft, retroversion,
      radius, neck_z) of the direct mesh of the same generator bone
      (CT_GATES), exactly 3 slice-stack launches (one per stack for the
-     batch) and no walk launch; the card's marching tets against the
+     batch), 1 raw-loop launch and no walk launch; the card's marching
+     tets against the
      CPU's on one threshold surface (equal count and weld, 1e-4 mm), the
      card's UNet against the CPU's (mask agreement >= 99.9 %), and each
      of the 3 batched launches equal to its 4 bones' own launches bit for
      bit and to the batched plain composition with phase 5's tolerances,
-     and its walk to the plain walk exactly, as in phase 5;
-     per-volume times with the UNet's and marching tets' bounds, and the
-     kernel's times at the CT sizes.
+     and its walk to the plain walk exactly, as in phase 5; the raw-loop
+     launch on the 4 CT planes (k 1024, band 6144, max_chain 1024) equal
+     to its bones' own launches bit for bit and to the plain composition
+     as in phase 5b; per-volume times with the UNet's and marching tets'
+     bounds, and the kernels' times at the CT sizes.
  10. training: a corpus of 8 random synthetic humeri by
      tools/make_unet_corpus_torch.build_corpus at DEFAULT_CONFIG on the
-     card (exactly 2 slice-stack launches per extracted bone, no walk
-     launch, images finite, mask fractions inside (0.05, 0.95), the first
+     card (exactly 2 slice-stack launches per extracted bone, no
+     raw-loop or walk launch, images finite, mask fractions inside (0.05, 0.95), the first
      bone's two stacks against the plain composition with phase 5's
      tolerances); the articular UNet at full width (512 x 512, batch 16):
      30 `train_mixture` steps on that corpus from Flax-like random
@@ -110,7 +133,8 @@ Phases (any failure raises, so the exit code is non-zero):
      CPU's margin; see ACC_ARTHRITIC_GATE).
  12. mesh: parallel.mesh.bone_mesh() over the card (one device):
      sharded_landmark_fn on phase 4's batch equal to phase 4 exactly,
-     with 3 slice-stack launches; cohort_stats of it against numpy's
+     with 3 slice-stack launches and 1 raw-loop launch; cohort_stats of
+     it against numpy's
      nanmean / nanstd; process_cohort(device_mesh=...) over the 8 STLs in
      batches of 4 equal to phase 8's results exactly.
  13. mesh training and sections: models.unet_train.train(mesh=bone_mesh(),
@@ -149,6 +173,7 @@ import copy
 import dataclasses
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -302,6 +327,57 @@ def swapped(module, name, fn):
         yield
     finally:
         setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def recording_raw(sink):
+    """Within the block, slicing.slice_raw_banded runs as usual and each
+    call's ((sg, z, band, max_chain, select, k), result) is appended to
+    sink, band and k clamped as the wrapper clamps them."""
+    from shoulder_tpu_torch.ops import slicing
+
+    fn = slicing.slice_raw_banded
+    sig = inspect.signature(fn)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        bound_args = sig.bind(*args, **kwargs)
+        bound_args.apply_defaults()
+        sg, z, band, max_chain, select, k = bound_args.args
+        band = min(band, sg.z_key.shape[-1])
+        sink.append(((sg, z, band, max_chain, select, min(k, band)), out))
+        return out
+
+    with swapped(slicing, "slice_raw_banded", wrapped):
+        yield sink
+
+
+def plain_raw_banded(sg, z, band, max_chain=2048, select="largest", k=512):
+    """slice_raw_banded as the parent tree ran it on the card: the plain
+    composition on CUDA tensors."""
+    from shoulder_tpu_torch.ops import slicing
+
+    band = min(band, sg.z_key.shape[-1])
+    return slicing.slice_raw_banded_plain(sg, z, band, max_chain, select,
+                                          min(k, band))
+
+
+def reset_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    slicing.raw_launch_count = 0
+
+
+def launch_counts():
+    """(slice-stack, raw-loop, standalone walk) launches since
+    reset_launches()."""
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    return (slicing.launch_count, slicing.raw_launch_count,
+            chain_walk.launch_count)
 
 
 @contextlib.contextmanager
@@ -518,6 +594,24 @@ def random_walk_rows(rng, k, n_rows):
     return succ, crossed
 
 
+def merging_walk_rows(rng, k, n_rows):
+    """Successor rows of every kind the walk takes
+    (tests/test_torch_cuda.py's): in even rows a random map (chains
+    merge), in odd rows a random permutation (cycles); a tenth of the
+    slots cut (its own successor, out of range, or negative); nc random."""
+    slots = np.arange(k)
+    succ = rng.integers(0, k, size=(n_rows, k))
+    succ[1::2] = np.stack([rng.permutation(k) for _ in range(n_rows // 2)])
+    u = rng.random((n_rows, k))
+    succ = np.where(u < 0.04, slots, succ)
+    succ = np.where((u >= 0.04) & (u < 0.07),
+                    k + rng.integers(0, k, size=(n_rows, k)), succ)
+    succ = np.where((u >= 0.07) & (u < 0.1),
+                    -1 - rng.integers(0, 3, size=(n_rows, k)), succ)
+    nc = rng.integers(0, k + 1, size=n_rows)
+    return succ.astype(np.int32), (slots < nc[:, None]).astype(np.int32)
+
+
 def gate_like(name, got, want):
     """side equal, neck-shaft / retroversion / radius within 0.05 of
     phase 4's values for the same bone (one card, one program)."""
@@ -540,21 +634,20 @@ def facade_phase(td, path, dev, lm_np, smi):
     import shoulder_tpu_torch as stt
     from shoulder_tpu_torch.io import stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
-    from shoulder_tpu_torch.ops import chain_walk, slicing
 
+    # (slice-stack, raw-loop) launches of each step
     counts = {}
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     t0 = time.perf_counter()
     hum = stt.Humerus(path, device=dev)
     ingest_s = time.perf_counter() - t0
     hum.apply_csys_canal_transepiconylar()
     first_s = time.perf_counter() - t0
-    counts["landmarks"] = slicing.launch_count
+    counts["landmarks"] = launch_counts()[:2]
     log(f"facade: Humerus first landmark in {first_s * 1e3:.1f} ms wall "
         f"(ingest {ingest_s * 1e3:.1f} ms, landmarks and csys "
-        f"{(first_s - ingest_s) * 1e3:.1f} ms), "
-        f"{counts['landmarks']} slice-stack launches ({smi})")
+        f"{(first_s - ingest_s) * 1e3:.1f} ms), (slice-stack, raw-loop) "
+        f"launches {counts['landmarks']} ({smi})")
 
     canal = hum.canal.axis()
     d = (canal[0] - canal[1]) / np.linalg.norm(canal[0] - canal[1])
@@ -594,7 +687,7 @@ def facade_phase(td, path, dev, lm_np, smi):
         raise AssertionError("plot has no mesh3d trace")
 
     # the slice views: one slice-stack launch each
-    before = slicing.launch_count
+    before = launch_counts()
     for name in ("full_slices", "proximal_slices", "distal_slices"):
         view = getattr(hum, name)
         xy, areas = view.ixy((0.1, 0.9)), view.areas1((0.1, 0.9))
@@ -602,17 +695,18 @@ def facade_phase(td, path, dev, lm_np, smi):
             f"{areas.min():.1f}..{areas.max():.1f} mm^2")
         if not (np.isfinite(xy).all() and (areas > 0).all()):
             raise AssertionError(f"{name}: non-finite contour or empty slice")
-    counts["views"] = slicing.launch_count - before
+    counts["views"] = tuple(a - b for a, b in zip(launch_counts()[:2], before))
 
     # a proximal-only bone, on the card and on the CPU (plain composition)
     v, f = synthetic_humerus(side="left", proximal_only=True,
                              rng_transform=np.random.default_rng(8))
     prox_path = os.path.join(td, "proximal.stl")
     stl.write_stl(prox_path, v, f)
-    before = slicing.launch_count
+    before = launch_counts()
     ph = stt.ProximalHumerus(prox_path, device=dev)
     card = (ph.side(), ph.neckshaft(), ph.radius_curvature())
-    counts["proximal"] = slicing.launch_count - before
+    counts["proximal"] = tuple(a - b for a, b in zip(launch_counts()[:2],
+                                                     before))
     ph_cpu = stt.ProximalHumerus(prox_path, device="cpu")
     cpu = (ph_cpu.side(), ph_cpu.neckshaft(), ph_cpu.radius_curvature())
     log(f"ProximalHumerus: card {card}, cpu {cpu}")
@@ -621,10 +715,10 @@ def facade_phase(td, path, dev, lm_np, smi):
     if not (abs(card[1] - cpu[1]) < 0.75 and abs(card[2] - cpu[2]) < 0.75):
         raise AssertionError("ProximalHumerus card and cpu differ")
 
-    counts["walk"] = chain_walk.launch_count
+    counts["walk"] = launch_counts()[2]
     log(f"facade launches: {counts}")
-    for name, want in (("landmarks", 3), ("views", 3), ("proximal", 2),
-                       ("walk", 0)):
+    for name, want in (("landmarks", (3, 1)), ("views", (3, 0)),
+                       ("proximal", (2, 1)), ("walk", 0)):
         if counts[name] != want:
             raise AssertionError(f"facade {name}: {counts[name]} launches, "
                                  f"expected {want}")
@@ -635,26 +729,23 @@ def cohort_phase(paths, dev, lm_np, sides, smi, batch=4):
     """Phase 8: process_cohort over the STLs, ingest included; returns
     (slice-stack launches, the result dicts)."""
     from shoulder_tpu_torch import cohort
-    from shoulder_tpu_torch.ops import chain_walk, slicing
 
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = cohort.process_cohort(paths, device=dev, batch_size=batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = slicing.launch_count
-    want = 3 * -(-len(paths) // batch)  # 3 per batch
+    launches = launch_counts()
+    batches = -(-len(paths) // batch)
+    want = (3 * batches, batches, 0)  # 3 slice-stack and 1 raw per batch
     log(f"cohort: {len(res)} bones in {wall:.2f} s, "
         f"{len(res) / wall:.3f} bones/s with ingest, batch {batch}, "
-        f"{launches} slice-stack launches, {chain_walk.launch_count} walk "
-        f"launches ({smi})")
+        f"(slice-stack, raw-loop, walk) launches {launches} ({smi})")
     if len(res) != len(paths):
         raise AssertionError("cohort lost bones")
-    if launches != want or chain_walk.launch_count != 0:
-        raise AssertionError(f"cohort: {launches} slice-stack and "
-                             f"{chain_walk.launch_count} walk launches, "
-                             f"expected {want} and 0")
+    if launches != want:
+        raise AssertionError(f"cohort: (slice-stack, raw-loop, walk) "
+                             f"launches {launches}, expected {want}")
     for i, r in enumerate(res):
         got = (r["side"], r["neckshaft_deg"], r["retroversion_deg"],
                r["radius_curvature_mm"])
@@ -674,6 +765,7 @@ def walk_phase(dev, bone0_stacks, smi):
     k = min(DEFAULT_CONFIG.slice_compact_k, DEFAULT_CONFIG.proximal.band)
     rng = np.random.default_rng(0)
     cases = {"random": random_walk_rows(rng, k, 64),
+             "merging": merging_walk_rows(rng, k, 256),
              "empty": (np.tile(np.arange(64, dtype=np.int32), (8, 1)),
                        np.zeros((8, 64), np.int32))}
     cases = {name: tuple(torch.as_tensor(a, device=dev) for a in c)
@@ -713,11 +805,14 @@ def walk_phase(dev, bone0_stacks, smi):
     res["bound_ms"], res["bound_by"] = bound(*walk_work(prox[0], visits))
     res["batch8_bound_ms"], _ = bound(*walk_work(prox8[0], BATCH * visits))
     log(f"walk time, proximal stack {tuple(prox[0].shape)}: kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms, bound "
+        f"{res['ms']:.4f} ms ({100 * res['bound_ms'] / res['ms']:.3g} % of "
+        f"the bound), plain {res['plain_ms']:.2f} ms, bound "
         f"{res['bound_ms'] * 1e3:.3f} us ({smi})")
     log(f"walk time, batch-8 rows {tuple(prox8[0].shape)}: kernel "
-        f"{res['batch8_ms']:.4f} ms, plain {res['batch8_plain_ms']:.2f} ms, "
-        f"bound {res['batch8_bound_ms'] * 1e3:.3f} us")
+        f"{res['batch8_ms']:.4f} ms "
+        f"({100 * res['batch8_bound_ms'] / res['batch8_ms']:.3g} %), plain "
+        f"{res['batch8_plain_ms']:.2f} ms, bound "
+        f"{res['batch8_bound_ms'] * 1e3:.3f} us")
     res["max_abs_err"] = max_err
     return res
 
@@ -910,6 +1005,157 @@ def stage_breakdown(args):
             "stage_us_mean": dict(zip(slicing.STAGES, us.mean(0).tolist()))}
 
 
+def raw_work(sg, z, band, k, max_chain):
+    """Bytes and float operations the raw-loop kernel needs for planes z
+    (B,), one per bone, counted from these inputs: each bone's z_mm
+    window, each fvt/ids row of a kept crossed face, the z_key entries a
+    binary search reads and the cummax_z_max entry of the overflow test
+    (at lo - 1, lo > 0) read once, z once; points, n, area, centroid and
+    overflow written once.  Operations: about 40 per kept face (segment,
+    sums)."""
+    from shoulder_tpu_torch.ops import slicing
+
+    n_bytes = n_ops = 0
+    for b in range(z.shape[0]):
+        one = slicing.SortedGeom(*(x[b] for x in sg))
+        zb = z[b:b + 1]
+        lo, _starts, _over = slicing._window_starts(one, zb, band)
+        zmm = one.z_mm[lo[:, None] + torch.arange(band, device=z.device)]
+        kept = min(int(((zmm[..., 1] >= zb[:, None])
+                        & (zmm[..., 0] < zb[:, None])).sum()), k)
+        n_bytes += (band * 8 + kept * (9 * 4 + 4 * 4)
+                    + searched_keys(one.z_key, zb) * 4
+                    + (4 if int(lo[0]) > 0 else 0) + 4
+                    + max_chain * 8 + 8 + 4 + 8 + 1)
+        n_ops += 40 * kept
+    return n_bytes, n_ops
+
+
+def raw_disagreement(got, want):
+    """Largest differences between two (RawLoop, overflow) results, and
+    the planes whose loop differs (n, or area or centroid beyond phase
+    5's tolerances)."""
+    (g, g_over), (w, w_over) = got, want
+    da = (g.area - w.area).abs()
+    dc = (g.centroid - w.centroid).abs().amax(dim=-1)
+    return {
+        "points_mm": float((g.points - w.points).abs().max()),
+        "points_equal": bool(torch.equal(g.points, w.points)),
+        "centroid_mm": float(dc.max()),
+        "area_mm2": float(da.max()),
+        "planes": int(da.numel()),
+        "n_differs": int((g.n != w.n).sum()),
+        "overflow_differs": int((g_over != w_over).sum()),
+        "loop_differs": int(((g.n != w.n) | (da > TOL_MM2)
+                             | (dc > TOL_MM)).sum()),
+        "overflow_planes": int(w_over.sum()),
+    }
+
+
+def check_raw(cases):
+    """Each (name, (sg, z, band, max_chain, select, k), kernel result or
+    None) case against the plain composition on the card: n, overflow and
+    the loop equal, points within 1e-5 mm; raises on a disagreement.
+    Returns the worst differences over the cases and the last case's."""
+    from shoulder_tpu_torch.ops import slicing
+
+    worst = {"points_mm": 0.0, "centroid_mm": 0.0, "area_mm2": 0.0,
+             "planes": 0, "loop_differs": 0, "points_equal": True}
+    for name, args, got in cases:
+        if got is None:
+            got = slicing.slice_raw_kernel(*args)
+        want = slicing.slice_raw_banded_plain(*args)
+        torch.cuda.synchronize()
+        d = raw_disagreement(got, want)
+        log(f"raw loop {name} ({args[4]}, k {args[5]}): {d}")
+        if (d["n_differs"] or d["overflow_differs"] or d["loop_differs"]
+                or d["points_mm"] > 1e-5):
+            raise AssertionError(f"raw-loop kernel disagrees on {name}")
+        for key in worst:
+            if key in ("planes", "loop_differs"):
+                worst[key] += d[key]
+            elif key == "points_equal":
+                worst[key] = worst[key] and d[key]
+            else:
+                worst[key] = max(worst[key], d[key])
+    return worst, d
+
+
+def raw_per_bone(name, args, got):
+    """Raise unless the batched raw-loop launch `got` over z (B,) equals
+    the kernel launched on each bone alone, bit for bit; returns B."""
+    from shoulder_tpu_torch.ops import slicing
+
+    sg, z, *rest = args
+    loop, over = got
+    for b in range(z.shape[0]):
+        one, one_over = slicing.slice_raw_kernel(
+            slicing.SortedGeom(*(x[b:b + 1] for x in sg)), z[b:b + 1], *rest)
+        if not (all(same_tensor(g[b:b + 1], w) for g, w in zip(loop, one))
+                and same_tensor(over[b:b + 1], one_over)):
+            raise AssertionError(f"raw loop {name}: bone {b} of the batched "
+                                 f"launch differs from its own launch")
+    torch.cuda.synchronize()
+    return z.shape[0]
+
+
+def time_raw(name, args, smi):
+    """Kernel and plain times of one raw-loop call and its bound from
+    these inputs."""
+    from shoulder_tpu_torch.ops import kernels, slicing
+
+    sg, z, band, max_chain, select, k = args
+    res = {"bones": int(z.shape[0]), "band": band, "k": k,
+           "max_chain": max_chain, "select": select,
+           "smem_bytes": int(kernels.library().slice_raw_smem_bytes(
+               band, k, max_chain))}
+    res["ms"] = timed_cuda(lambda: slicing.slice_raw_kernel(*args), 50)
+    res["plain_ms"] = timed_cuda(
+        lambda: slicing.slice_raw_banded_plain(*args), 3)
+    n_bytes, n_ops = raw_work(sg, z, band, k, max_chain)
+    res["bytes"], res["ops"] = n_bytes, n_ops
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, n_ops)
+    log(f"raw-loop time, {name}: {res['bones']} planes (band {band}, k {k},"
+        f" max_chain {max_chain}, {res['smem_bytes']} B shared): kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.2f} ms, bound "
+        f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} ({n_bytes} B), "
+        f"{100 * res['bound_ms'] / res['ms']:.3g} % of it ({smi})")
+    return res
+
+
+def raw_loop_phase(main_raw, bone0_raw, smi):
+    """Phase 5b: the raw-loop kernel against its plain version on the card
+    (the main path's planes with both selects, bone 0's edge planes, k 24)
+    and the batched launch against its bones' own launches; kernel and
+    plain timed on the main path's call."""
+    from shoulder_tpu_torch.ops import slicing
+
+    args, out = main_raw
+    sg, z, band, max_chain, select, k = args
+    other = "largest" if select == "central" else "central"
+    n_bones = raw_per_bone("batch neck planes", args, out)
+    log(f"raw loop: the batched launch equals its {n_bones} per-bone "
+        f"launches bit for bit")
+    sg0 = slicing.SortedGeom(*(x[0] for x in bone0_raw[0][0]))
+    edge = edge_planes(sg0)
+    sge = slicing.SortedGeom(*(x[None].expand((edge.shape[0],) + x.shape)
+                               .contiguous() for x in sg0))
+    band0 = bone0_raw[0][2]
+    cases = [("batch neck planes", args, out),
+             ("batch neck planes", (sg, z, band, max_chain, other, k), None),
+             ("bone 0 edge planes", (sge, edge, band0, max_chain, select, k),
+              None),
+             ("bone 0 edge planes", (sge, edge, band0, max_chain, other, k),
+              None),
+             ("batch neck planes, k 24", (sg, z, band, max_chain, select,
+                                          min(24, band)), None)]
+    worst, last = check_raw(cases)
+    if last["overflow_planes"] != z.shape[0]:
+        raise AssertionError("k = 24 did not overflow every plane")
+    log(f"raw-loop kernel vs plain, all {len(cases)} calls: {worst}")
+    return worst, time_raw("batch neck planes", args, smi)
+
+
 def ct_config():
     """DEFAULT_CONFIG's stacks and UNet segmenter with the padded sizes of
     a 1.0 mm CT mesh (~250k faces, tools/eval_ct_pitch.py:37-50)."""
@@ -957,7 +1203,7 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
     from shoulder_tpu_torch.io import ingest, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
     from shoulder_tpu_torch.models import ct_unet
-    from shoulder_tpu_torch.ops import chain_walk, marching_tets, slicing
+    from shoulder_tpu_torch.ops import marching_tets, slicing
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import ct
 
@@ -1027,20 +1273,22 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
 
     # ---- one landmark batch, counted
     bones = B.stack_bones(specs, dev)
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     t0 = time.perf_counter()
-    with recording(slicing, "slice_stack", []) as ct_stacks:
+    with recording(slicing, "slice_stack", []) as ct_stacks, \
+            recording_raw([]) as ct_raw:
         lm = B.compute_landmarks_batch(bones, rf, cfg=cfg, seg_model=seg2d)
         torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
-    launches, walk_launches = slicing.launch_count, chain_walk.launch_count
+    launches, raw_launches, walk_launches = launch_counts()
     log(f"ct batch of {n}: {batch_ms:.1f} ms wall, {launches} slice-stack "
-        f"launches, {walk_launches} walk launches ({smi})")
-    if launches != 3 or len(ct_stacks) != 3 or walk_launches != 0:
-        raise AssertionError(f"ct batch: {launches} slice-stack and "
-                             f"{walk_launches} walk launches, expected "
-                             f"3 and 0")
+        f"launches, {raw_launches} raw-loop launches, {walk_launches} walk "
+        f"launches ({smi})")
+    if (launches, raw_launches, walk_launches) != (3, 1, 0) \
+            or len(ct_stacks) != 3 or len(ct_raw) != 1:
+        raise AssertionError(f"ct batch: {launches} slice-stack, "
+                             f"{raw_launches} raw-loop and {walk_launches} "
+                             f"walk launches, expected 3, 1 and 0")
     lm_ct = B.landmarks_to_numpy(lm)
 
     # ---- the direct mesh of each generator bone, same config
@@ -1123,12 +1371,19 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
         f"stacks: {worst}")
     per_stack = {name: time_stack(f"ct batch {name}", a, smi)
                  for name, (a, _) in zip(STACKS, ct_stacks)}
+    # ---- the batched raw-loop launch at the CT sizes
+    (raw_args, raw_out), = ct_raw
+    raw_per_bone("ct neck planes", raw_args, raw_out)
+    raw_worst, _ = check_raw([("ct neck planes", raw_args, raw_out)])
+    raw_time = time_raw("ct neck planes", raw_args, smi)
     total_s = time.perf_counter() - t_phase
     log(f"ct phase: {total_s:.1f} s in all ({smi})")
     ingest = {key: float(np.mean([row["ingest_ms"][key] for row in
                                   per_volume]))
               for key in per_volume[0]["ingest_ms"]}
-    return {"launches": launches, "worst": worst, "per_stack": per_stack,
+    return {"launches": launches, "raw_launches": raw_launches,
+            "raw_worst": raw_worst, "raw_time": raw_time,
+            "worst": worst, "per_stack": per_stack,
             "per_volume": per_volume, "batch_ms": batch_ms,
             "ingest": {"bones": n, "native_ingest": n, "native_obb": n,
                        "numpy_calls": 0, "ms_per_bone": ingest},
@@ -1191,7 +1446,7 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
     4 (a batch of one, as the zero-step check below runs it), as numpy."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.models import convert, ct_unet, unet, unet_train
-    from shoulder_tpu_torch.ops import chain_walk, slicing
+    from shoulder_tpu_torch.ops import slicing
     from shoulder_tpu_torch.pipeline import ct
     from shoulder_tpu_torch.pipeline import landmarks as L
 
@@ -1202,8 +1457,7 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
 
     # ---- corpus: every extraction timed and counted
     tool = load_tool("make_unet_corpus_torch")
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     t0 = time.perf_counter()
     split = {}
     with recording(slicing, "slice_stack", []) as stacks, \
@@ -1212,7 +1466,7 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
         images, masks = tool.build_corpus(n_corpus, 0, config=cfg, device=dev)
     corpus_s = time.perf_counter() - t0
     ingest = ingest_check("corpus", split, smi)
-    launches, walk_launches = slicing.launch_count, chain_walk.launch_count
+    launches, raw_launches, walk_launches = launch_counts()
     n_extracted = len(extractions)
     extract_s = sum(ms for _, ms in extractions) / 1e3 / n_extracted
     log(f"corpus: {images.shape[0]} pairs {images.shape[1:]} from "
@@ -1220,14 +1474,15 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
         f"{extract_s:.3f} s per bone (first {extractions[0][1]:.0f} ms, "
         f"ingest apart), host ingest and the rest "
         f"{(corpus_s - extract_s * n_extracted) / n_extracted:.2f} s per "
-        f"bone; {launches} slice-stack launches, {walk_launches} walk "
-        f"launches ({smi})")
+        f"bone; {launches} slice-stack launches, {raw_launches} raw-loop "
+        f"launches, {walk_launches} walk launches ({smi})")
     if ingest["bones"] < n_extracted:
         raise AssertionError(f"corpus: {ingest['bones']} specs for "
                              f"{n_extracted} extracted bones")
     if launches != 2 * n_extracted or len(stacks) != launches \
-            or walk_launches != 0:
-        raise AssertionError(f"corpus: {launches} slice-stack and "
+            or raw_launches != 0 or walk_launches != 0:
+        raise AssertionError(f"corpus: {launches} slice-stack, "
+                             f"{raw_launches} raw-loop and "
                              f"{walk_launches} walk launches for "
                              f"{n_extracted} bones, expected "
                              f"{2 * n_extracted} and 0")
@@ -1545,17 +1800,44 @@ def spec_equal(a, b):
                for f in dataclasses.fields(a) if f.name != "name")
 
 
-def batch_timing(bones, rf, seg, smi):
+def ab_timing(bones, rf, seg, pairs=REPS + 1):
+    """Synchronized batch ms of the main path with the raw-loop kernel
+    and with the plain raw loop (plain_raw_banded), in turns (plain,
+    kernel, kernel, plain, ...), `pairs` of each, after one warm run
+    each: {"plain": [...], "kernel": [...]}."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.ops import slicing
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    def run(plain):
+        with (swapped(slicing, "slice_raw_banded", plain_raw_banded)
+              if plain else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
+                                      seg_model=seg)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    run(True)
+    run(False)
+    out = {"plain": [], "kernel": []}
+    for i in range(pairs):
+        for plain in ((True, False) if i % 2 == 0 else (False, True)):
+            out["plain" if plain else "kernel"].append(run(plain))
+    return out
+
+
+def batch_timing(bones, rf, seg, smi, reps=REPS):
     """Phase 6 for one batch: one profiled run (kernel launches: the
-    profiler's cudaLaunchKernel and every launch API call, plus the
-    slice-stack launches the profiler does not count; the device's busy
-    time and idle share), one run under set_sync_debug_mode("warn") (its
-    synchronizing calls counted), then REPS warm synchronized runs
-    (p50)."""
+    profiler's cudaLaunchKernel and every launch API call, plus the port's
+    own kernels' launches, which it does not count; the device's busy
+    time and idle share), two runs under set_sync_debug_mode("warn")
+    (the second's synchronizing calls counted: the first run so watched in
+    a process counts one more, whichever path it takes), then `reps` warm
+    synchronized runs (p50)."""
     from torch.profiler import ProfilerActivity, profile
 
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
-    from shoulder_tpu_torch.ops import slicing
     from shoulder_tpu_torch.pipeline import batch as B
 
     n = bones.verts.shape[0]
@@ -1566,32 +1848,33 @@ def batch_timing(bones, rf, seg, smi):
 
     run()
     torch.cuda.synchronize()
-    port0 = slicing.launch_count
+    port0 = launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    port = slicing.launch_count - port0
+    port = sum(launch_counts()) - sum(port0)
     api = {e.key: e.count for e in prof.key_averages()
            if "LaunchKernel" in e.key}
     busy_ms = load_tool("profile_torch_batch")._busy_ms(prof)
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
     syncs = sum("synchronizing" in str(w.message) for w in caught)
 
     lat = []
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1599,18 +1882,19 @@ def batch_timing(bones, rf, seg, smi):
     peak = torch.cuda.max_memory_allocated() - resident
     res = {"bones": n, "cudaLaunchKernel": api.get("cudaLaunchKernel", 0),
            "resident_bytes": resident, "peak_bytes": peak,
-           "launch_api": api, "slice_stack_launches": port,
+           "launch_api": api, "port_launches": port,
            "launches": sum(api.values()) + port, "syncs": syncs,
            "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms, "batch_ms": lat,
-           "p50_ms": float(np.median(lat))}
+           "p50_ms": float(np.median(lat)) if lat else None}
     log(f"batch of {n}: {res['launches']} kernel launches ({api}, plus "
-        f"{port} slice-stack launches), {syncs} synchronizing calls; "
+        f"{port} of the port's kernels), {syncs} synchronizing calls; "
         f"profiled run {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
-        f"share {res['idle_share']:.3f}; batch ms "
-        + ", ".join(f"{t:.1f}" for t in lat)
-        + f", p50 {res['p50_ms']:.1f}; peak memory above the "
-        f"{resident / 2**20:.1f} MiB resident {peak / 2**20:.1f} MiB ({smi})")
+        f"share {res['idle_share']:.3f}"
+        + (f"; batch ms " + ", ".join(f"{t:.1f}" for t in lat)
+           + f", p50 {res['p50_ms']:.1f}; peak memory above the "
+           f"{resident / 2**20:.1f} MiB resident {peak / 2**20:.1f} MiB"
+           if lat else "") + f" ({smi})")
     return res
 
 
@@ -1618,23 +1902,21 @@ def mesh_phase(bones, lm, paths, cohort_res, smi):
     """Phase 12: parallel/mesh.py on the mesh of every card (one here)."""
     from shoulder_tpu_torch import cohort
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
-    from shoulder_tpu_torch.ops import chain_walk, slicing
     from shoulder_tpu_torch.parallel import mesh as pmesh
     from shoulder_tpu_torch.pipeline import landmarks as L
 
     mesh = pmesh.bone_mesh()
     n_dev = len(mesh.devices)
     fn = pmesh.sharded_landmark_fn(mesh, cfg=DEFAULT_CONFIG)
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = fn(pmesh.shard_bones(bones, mesh))
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
-    launches = slicing.launch_count
-    if launches != 3 * n_dev or chain_walk.launch_count != 0:
-        raise AssertionError(f"mesh: {launches} slice-stack and "
-                             f"{chain_walk.launch_count} walk launches")
+    launches, raw_launches, walk_launches = launch_counts()
+    if (launches, raw_launches, walk_launches) != (3 * n_dev, n_dev, 0):
+        raise AssertionError(f"mesh: {launches} slice-stack, {raw_launches} "
+                             f"raw-loop and {walk_launches} walk launches")
     home = lm.neck_z.device
     got = L.Landmarks(*(torch.cat([getattr(o, f).to(home) for o in out])
                         for f in L.Landmarks._fields))
@@ -1642,7 +1924,8 @@ def mesh_phase(bones, lm, paths, cohort_res, smi):
               if not same_tensor(g, w)]
     log(f"mesh: {n_dev} device(s) {[str(d) for d in mesh.devices]}, sharded "
         f"batch of {bones.verts.shape[0]} in {batch_ms:.1f} ms, {launches} "
-        f"slice-stack launches; fields differing from phase 4: {differ}")
+        f"slice-stack and {raw_launches} raw-loop launches; fields differing "
+        f"from phase 4: {differ}")
     if differ:
         raise AssertionError(f"mesh: {differ} differ from phase 4")
 
@@ -1681,7 +1964,8 @@ def mesh_phase(bones, lm, paths, cohort_res, smi):
     if not equal(res, cohort_res):
         raise AssertionError("mesh: process_cohort on the mesh differs from "
                              "phase 8")
-    return {"devices": n_dev, "launches": launches, "batch_ms": batch_ms,
+    return {"devices": n_dev, "launches": launches,
+            "raw_launches": raw_launches, "batch_ms": batch_ms,
             "cohort_stats": stats, "cohort_s": wall}
 
 
@@ -1690,7 +1974,7 @@ def mesh_train_sections_phase(bones, lm, smi):
     the full-set and arbitrary-plane sections on the card against the
     CPU."""
     from shoulder_tpu_torch.models import unet_train
-    from shoulder_tpu_torch.ops import chain_walk, rays, slicing
+    from shoulder_tpu_torch.ops import rays, slicing
     from shoulder_tpu_torch.parallel import mesh as pmesh
     from shoulder_tpu_torch.utils import fits
     from shoulder_tpu_torch.utils import geometry as geom
@@ -1735,8 +2019,7 @@ def mesh_train_sections_phase(bones, lm, smi):
         raise AssertionError("mesh training: dryrun's loss is not finite")
 
     # ---- sections: the card against the CPU on the same inputs
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     cpu = torch.device("cpu")
     verts_obb = geom.transform_pts(bones.verts.cpu(),
                                    bones.obb_transform.cpu())
@@ -1835,7 +2118,7 @@ def mesh_train_sections_phase(bones, lm, smi):
         f"max relative {circle_rel:.3g}")
     if circle_rel > 1e-4:
         raise AssertionError("fit_circle: the card differs from the CPU")
-    if slicing.launch_count or chain_walk.launch_count:
+    if any(launch_counts()):
         raise AssertionError("the sections launched a kernel")
     total_s = time.perf_counter() - t_phase
     log(f"mesh training and sections phase: {total_s:.1f} s in all ({smi})")
@@ -1857,7 +2140,7 @@ def main(td):
     from shoulder_tpu_torch.io import ingest, native, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
     from shoulder_tpu_torch.models import forest, unet
-    from shoulder_tpu_torch.ops import chain_walk, kernels, slicing
+    from shoulder_tpu_torch.ops import kernels, slicing
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import landmarks as L
 
@@ -1907,6 +2190,7 @@ def main(td):
     # real rows, its image and landmarks serve phase 10
     bone0 = B.bone_tensors(specs[0], dev)
     with recording(slicing, "slice_stack", []) as bone0_stacks, \
+            recording_raw([]) as bone0_raw, \
             recording(unet, "segment_image", []) as bone0_seg:
         lm_bone0 = L.compute_landmarks(bone0, rf, seg_model=seg)
     torch.cuda.synchronize()
@@ -1917,27 +2201,29 @@ def main(td):
     walk = walk_phase(dev, bone0_stacks, smi)
 
     # ---- pipeline on the card: the main path, counted
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
+    reset_launches()
     t0 = time.perf_counter()
     with recording(slicing, "slice_stack", []) as main_stacks, \
+            recording_raw([]) as main_raw, \
             recording(slicing, "_compact_slice", []) as compactions:
         lm = B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
                                        seg_model=seg)
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = slicing.launch_count
-    walk_launches = chain_walk.launch_count
+    launches, raw_launches, walk_launches = launch_counts()
     log(f"pipeline: first batch of {BATCH} in {first_s:.2f} s, "
-        f"{launches} slice-stack launches, {walk_launches} walk launches, "
-        f"{len(compactions)} plain compactions (the batch's surgical-neck "
-        f"planes)")
+        f"{launches} slice-stack launches, {raw_launches} raw-loop launches "
+        f"(the batch's surgical-neck planes), {walk_launches} walk "
+        f"launches, {len(compactions)} plain compactions")
     if launches != 3 or len(main_stacks) != 3:
         raise AssertionError(f"the main path made {launches} slice-stack "
                              f"launches, expected 3 for the batch")
-    if walk_launches != 0 or len(compactions) != 1:
-        raise AssertionError("the main path ran the standalone walk or the "
-                             "plain compaction inside slice_stack")
+    if raw_launches != 1 or len(main_raw) != 1:
+        raise AssertionError(f"the main path made {raw_launches} raw-loop "
+                             f"launches, expected 1 for the batch")
+    if walk_launches != 0 or compactions:
+        raise AssertionError("the main path ran the standalone walk or a "
+                             "plain compaction")
 
     lm_np = L.Landmarks(*(x.cpu().numpy() for x in lm))
     for name, arr in lm_np._asdict().items():
@@ -1994,10 +2280,37 @@ def main(td):
     worst, per_stack, per_stack_bone0 = slice_kernel_phase(
         main_stacks, bone0_stacks, smi)
     del main_stacks
+    # ---- the raw-loop kernel against its plain version
+    raw_worst, raw_time = raw_loop_phase(main_raw[0], bone0_raw[0], smi)
+    del main_raw, bone0_raw
 
-    # ---- timing: a batch of 1 against a batch of 8
-    timing = {n: batch_timing(B.stack_bones(specs[:n], dev), rf, seg, smi)
-              for n in (1, BATCH)}
+    # ---- timing: a batch of 1 against a batch of 8; each also with the
+    # plain raw loop the parent tree ran on the card (profiled and
+    # counted), and both timed in interleaved turns
+    t_phase6 = time.perf_counter()
+    timing, timing_plain = {}, {}
+    for n in (1, BATCH):
+        batch_n = B.stack_bones(specs[:n], dev)
+        timing[n] = batch_timing(batch_n, rf, seg, smi)
+        with swapped(slicing, "slice_raw_banded", plain_raw_banded):
+            timing_plain[n] = batch_timing(batch_n, rf, seg, smi, reps=0)
+        ab = ab_timing(batch_n, rf, seg)
+        timing[n]["ab_ms"], timing_plain[n]["ab_ms"] = ab["kernel"], ab["plain"]
+        p, k = (float(np.median(ab[v])) for v in ("plain", "kernel"))
+        log(f"batch of {n}, plain raw loop -> raw-loop kernel: launches "
+            f"{timing_plain[n]['launches']} -> {timing[n]['launches']}, "
+            f"synchronizing calls {timing_plain[n]['syncs']} -> "
+            f"{timing[n]['syncs']}, device busy {timing_plain[n]['busy_ms']:.1f}"
+            f" -> {timing[n]['busy_ms']:.1f} ms, idle share "
+            f"{timing_plain[n]['idle_share']:.3f} -> "
+            f"{timing[n]['idle_share']:.3f}; interleaved batch ms, median "
+            f"(min-max) over {len(ab['kernel'])} each: {p:.1f} "
+            f"({min(ab['plain']):.1f}-{max(ab['plain']):.1f}) -> {k:.1f} "
+            f"({min(ab['kernel']):.1f}-{max(ab['kernel']):.1f}) ({smi})")
+        if timing[n]["syncs"] > timing_plain[n]["syncs"]:
+            raise AssertionError("the raw-loop kernel added synchronizing "
+                                 "calls")
+    log(f"timing phase: {time.perf_counter() - t_phase6:.1f} s")
     one, full = timing[1], timing[BATCH]
     log(f"throughput: {BATCH / full['p50_ms'] * 1e3:.3f} bones/s, p50 "
         f"{full['p50_ms']:.1f} ms/batch of {BATCH}; launches per batch of "
@@ -2027,7 +2340,7 @@ def main(td):
                                                    smi)
     ingest_res["cohort"] = ingest_check("cohort", split, smi, n_specs=BATCH)
     ct_res = ct_phase(dev, rf, seg, smi)
-    ct_worst = ct_res["worst"]
+    ct_worst, ct_raw_worst = ct_res["worst"], ct_res["raw_worst"]
     ingest_res["ct"] = ct_res["ingest"]
     train_res = train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi)
     train_worst = train_res["worst"]
@@ -2055,8 +2368,9 @@ def main(td):
         "replaces": "shoulder_tpu/ops/pallas_chain.py:52",
         "launches": launches,
         "launches_per_phase": {"pipeline": launches,
-                               "facade": facade,
-                               "cohort": cohort_launches,
+                               "facade": {key: v[0] for key, v in
+                                          facade.items() if key != "walk"},
+                               "cohort": cohort_launches[0],
                                "ct": ct_res["launches"],
                                "corpus": train_res["launches"],
                                "mesh": mesh_res["launches"]},
@@ -2082,6 +2396,7 @@ def main(td):
         "per_stack_bone0": per_stack_bone0,
         "per_stack_ct": ct_res["per_stack"],
         "timing": timing,
+        "timing_plain_raw_loop": timing_plain,
         "mesh": mesh_res,
         "ct": {"max_abs_err": max(ct_worst["contour_mm"],
                                   ct_worst["centroid_mm"]),
@@ -2099,6 +2414,36 @@ def main(td):
                      ("bones", "extract_s_per_bone", "unet_step",
                       "ct_unet_step", "unet_losses", "ct_losses",
                       "card_vs_cpu_gradient", "total_s")},
+    }, {
+        "name": "slice_raw",
+        "route": "cuda",
+        "source": "shoulder_tpu_torch/csrc/slice_raw.cu",
+        "replaces": "shoulder_tpu/ops/slicing.py:937",
+        "replaces_kind": "XLA code (slice_raw_banded), no TPU kernel",
+        "launches": raw_launches,
+        "launches_per_phase": {"pipeline": raw_launches,
+                               "facade": {key: v[1] for key, v in
+                                          facade.items() if key != "walk"},
+                               "cohort": cohort_launches[1],
+                               "ct": ct_res["raw_launches"],
+                               "corpus": 0,
+                               "mesh": mesh_res["raw_launches"]},
+        "max_abs_err": max(w[key] for w in (raw_worst, ct_raw_worst)
+                           for key in ("points_mm", "centroid_mm")),
+        "max_area_err_mm2": max(raw_worst["area_mm2"],
+                                ct_raw_worst["area_mm2"]),
+        "points_bit_equal": (raw_worst["points_equal"]
+                             and ct_raw_worst["points_equal"]),
+        "planes_compared": raw_worst["planes"] + ct_raw_worst["planes"],
+        "planes_loop_differs": (raw_worst["loop_differs"]
+                                + ct_raw_worst["loop_differs"]),
+        "ms": raw_time["ms"],
+        "plain_ms": raw_time["plain_ms"],
+        "bound_ms": raw_time["bound_ms"],
+        "bound_by": raw_time["bound_by"],
+        "library_ms": None,
+        "batch": raw_time,
+        "ct": ct_res["raw_time"],
     }, {
         "name": "chain_walk",
         "route": "cuda",

@@ -1,49 +1,29 @@
-// The contour-chain walk of one slicing plane, in two forms that give the
-// same result: walk_loops, one thread walking the row (the standalone walk
-// kernel, chain_walk.cu), and walk_ranked, the whole thread block ranking
-// the row (the fused slice-stack kernel, slice_stack.cu, whose timed build
-// hands its walk out so that chip_smoke.py holds it exactly against the
-// plain walk).
+// The contour-chain walk of one slicing plane by list ranking, the whole
+// thread block at once: the walk of the fused slice-stack kernel
+// (slice_stack.cu), whose timed build hands it out so that chip_smoke.py
+// holds it exactly against the plain walk (ops/chain_walk.py's
+// chain_walk_plain).
 //
-// One thread walks the row in place:
-//   work[0, k)  successor of each compact face slot (a self-loop where the
-//               face starts no chain); overwritten with -1 as slots are
-//               visited
-//   walk[0, n)  face visited at each walk position; the first position of
-//               each loop carries +k (its head mark)
-// Loops start in order of their smallest unvisited slot h < nc and are
-// walked in successor direction until the next slot is already visited; a
-// self-successor ends at once.  Successor values outside [0, k) end a loop
-// like a visited slot does.  Returns n, the number of faces visited.
-// Positions at or past n are left as they were.
+// The serial walk it stands for: loops start in order of their smallest
+// unvisited slot h < nc and are walked in successor direction until the
+// next slot is already visited; a self-successor ends at once.  Successor
+// values outside [0, k) end a loop like a visited slot does.  walk[0, n)
+// holds the face visited at each walk position, the first position of
+// each loop carrying +k (its head mark).
+//
+// The standalone walk kernel (chain_walk.cu) takes any successor map,
+// chains that merge included, and computes the same walk by its own
+// pointer jumping over successors.
 
 #pragma once
 
 #include <stdint.h>
 
-__device__ __forceinline__ int walk_loops(int32_t* work, int32_t* walk,
-                                          int nc, int k) {
-  int pos = 0;
-  for (int h = 0; h < nc; ++h) {
-    if (work[h] < 0) continue;  // visited by an earlier loop
-    int cur = h;
-    int mark = k;               // the head entry of a loop
-    while (cur >= 0) {
-      const int nxt = work[cur];
-      work[cur] = -1;
-      walk[pos++] = cur + mark;
-      mark = 0;
-      cur = (nxt < 0 || nxt >= k || work[nxt] < 0) ? -1 : nxt;
-    }
-  }
-  return pos;
-}
-
-// walk_ranked: the same walk by list ranking, for a successor map whose
-// chains cannot merge, as the fused kernel's injectivity stage leaves it:
-// every slot has at most one predecessor other than itself.  Ignoring
+// walk_ranked: the walk by list ranking, for a successor map whose chains
+// cannot merge, as the fused kernel's injectivity stage leaves it: every
+// slot has at most one predecessor other than itself.  Ignoring
 // self-successors the map is then disjoint simple paths and cycles, and
-// walk_loops's result has a closed form:
+// the serial walk's result has a closed form:
 //   - a path x0 -> ... -> xm (x0 without predecessor, xm its own successor)
 //     puts xi in the loop headed by the smallest of x0..xi below nc (a
 //     prefix minimum); slots with none below nc in their prefix are not
@@ -74,7 +54,7 @@ __device__ __forceinline__ int walk_loops(int32_t* work, int32_t* walk,
 //                 where there is none
 //   nc <= nv <= k <= 32767 (slots, distances and window sizes take 16 bits)
 //   scratch: ping, pong nv uint2 each, len nc int32, wsum kThreads / 32
-// Writes walk[0, n) as walk_loops does and loop_start[p], the position of
+// Writes walk[0, n) as the serial walk leaves it and loop_start[p], the position of
 // the first slot of p's loop, for p < n; returns n in every thread.  The
 // caller's barrier must precede the call; the call ends with one.
 namespace walk_detail {

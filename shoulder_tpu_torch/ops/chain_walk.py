@@ -1,12 +1,15 @@
-"""Sequential contour-chain walk: CUDA kernel, wrapper and plain version.
+"""Contour-chain walk: CUDA kernel, wrapper and plain version.
 
 The counterpart of shoulder_tpu/ops/pallas_chain.py (the Pallas TPU
 kernel `_walk_kernel` behind `chain_walk_marked`).  The kernel is
-csrc/chain_walk.cu around the walk of csrc/walk.cuh, part of the port's
-one kernel library (ops/kernels.py: nvcc for sm_90a at first use, bound
-through ctypes).  The main path's slice stacks walk inside the fused
-slice-stack kernel (csrc/slice_stack.cu); this entry point is the walk on
-its own.
+csrc/chain_walk.cu, part of the port's one kernel library
+(ops/kernels.py: nvcc for sm_90a at first use, bound through ctypes).  It
+computes the serial walk's closed form by pointer jumping, one thread
+block per row: each slot's loop head is the smallest slot below nc that
+reaches it, its position the head's offset plus its distance
+(tests/test_torch_chain_rank.py holds the rounds' plain model).
+The main path's slice stacks walk inside the fused slice-stack kernel
+(csrc/slice_stack.cu); this entry point is the walk on its own.
 
 Contract, for (R, K) int32 `succ` and `crossed` (crossed faces packed at
 the front of each row): walk every contour loop of every row in successor
@@ -15,13 +18,18 @@ nc = sum(crossed).  Returns order (R, K) int32, the face at each walk
 position; n (R,) int32, the faces visited; is_start (R, K) bool, true
 where a position begins a loop.  Positions at or past n hold 0 / False.
 
-`chain_walk_marked` runs the plain PyTorch walk for a tensor on the CPU
-and the CUDA kernel for a tensor on the card; it never falls back from one
-to the other.  `launch_count` counts kernel launches.
+Successor values outside [0, K) end a loop; a slot whose own successor is
+negative counts as visited from the start.  Any map is taken, chains that
+merge included.
+
+`chain_walk_marked` runs the plain PyTorch walk (the serial walk, one
+step for every row at once) for a tensor on the CPU and the CUDA kernel
+for a tensor on the card; it never falls back from one to the other.
+`launch_count` counts kernel launches.
 
 The fused kernel walks by list ranking instead (walk.cuh's `walk_ranked`,
-the whole block at once), which gives the same walk wherever chains
-cannot merge, as its injectivity stage ensures
+the whole block at once, over the predecessor map), which gives the same
+walk wherever chains cannot merge, as its injectivity stage ensures
 (tests/test_torch_walk_ranked.py holds its plain model).
 """
 

@@ -112,5 +112,9 @@ def library():
         lib.slice_stack_smem_bytes.restype = ctypes.c_longlong
         lib.slice_stack_blocks_per_sm.argtypes = [i32, i32, i32]
         lib.slice_stack_blocks_per_sm.restype = i32
+        lib.slice_raw_launch.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        lib.slice_raw_launch.restype = i32
+        lib.slice_raw_smem_bytes.argtypes = [i32, i32, i32]
+        lib.slice_raw_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib

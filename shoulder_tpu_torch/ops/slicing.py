@@ -11,8 +11,10 @@ Port of shoulder_tpu/ops/slicing.py.  What the landmark pipeline runs:
   5. largest-loop selection and arc-length resampling (`_post_walk`,
      `_resample`),
 
-plus the single-plane raw loop of the surgical neck (`slice_raw_banded`,
-pointer doubling, as in the JAX package on every backend).  Beside it,
+plus the single-plane raw loop of the surgical neck (`slice_raw_banded`:
+pointer doubling, as in the JAX package on every backend; on the card one
+launch of csrc/slice_raw.cu for the batch, on the CPU its plain
+composition `slice_raw_banded_plain`).  Beside it,
 off the pipeline's path: `sorted_geom` without `face_orig` (the device
 sort by (z_min, face id)), the full-set single-plane section `slice_raw`
 on `FaceGeom` (`_crossing_topology`, `_segment_points`), and the section
@@ -53,9 +55,15 @@ _BIG = torch.iinfo(torch.int32).max
 KERNEL_MAX_K = 2048
 KERNEL_MAX_BAND = 16384
 KERNEL_MAX_BONES = 65535  # the launch's grid y dimension: one bone each
+# the raw-loop kernel (csrc/slice_raw.cu) takes k and band as the
+# slice-stack kernel does and max_chain output points: at these limits its
+# block takes 60 k + 4 max_chain + 2 band bytes, 184 KB
+RAW_MAX_CHAIN = 8192
+SELECTS = ("largest", "central")
 STAGES = ("window", "compaction", "segments", "injectivity", "walk",
           "moments", "roll", "knots", "resample")  # timed kernel's stages
 launch_count = 0  # slice-stack kernel launches since the caller reset it
+raw_launch_count = 0  # raw-loop kernel launches since the caller reset it
 
 
 class SliceStack(NamedTuple):
@@ -621,11 +629,17 @@ def _order_loop(crossed, start, succ, lab, best, count_best, max_chain: int,
     position = torch.where(position < 0, position + max_chain, position)
     position = torch.where(member & (position >= 0) & (position < max_chain),
                            position, max_chain)
-    points = torch.zeros((succ.shape[0], max_chain + 1, 2), dtype=start.dtype,
-                         device=start.device)
-    points.scatter_(1, position[..., None].expand(position.shape + (2,)),
-                    start)
-    return points[:, :max_chain]
+    # where such positions collide, the largest slot wins, as a sequential
+    # scatter in slot order leaves it; an integer amax says so on every
+    # device
+    owner = torch.full((succ.shape[0], max_chain + 1), -1, dtype=torch.int64,
+                       device=succ.device)
+    owner.scatter_reduce_(1, position, rows.expand_as(position),
+                          reduce="amax")
+    owner = owner[:, :max_chain]
+    points = start.gather(1, owner.clamp(min=0)[..., None].expand(
+        owner.shape + (2,)))
+    return torch.where((owner >= 0)[..., None], points, 0.0)
 
 
 def slice_raw_banded(sg: SortedGeom, z, band: int, max_chain: int = 2048,
@@ -636,11 +650,77 @@ def slice_raw_banded(sg: SortedGeom, z, band: int, max_chain: int = 2048,
     select='largest' picks the max-area loop; select='central' the loop
     (of at least 3 faces) whose mean point is nearest the z axis.  The
     loop starts at its smallest original face id.  Returns (RawLoop,
-    overflow), each with a leading (B,).  Every pick is a gather on the
-    device: no host read.
+    overflow), each with a leading (B,).  No host read.
+
+    CPU tensors take the plain composition (`slice_raw_banded_plain`);
+    CUDA tensors launch csrc/slice_raw.cu once for the batch
+    (`slice_raw_kernel`), or raise.
     """
     band = min(band, sg.z_key.shape[-1])
     k = min(k, band)
+    if z.device.type == "cpu":
+        return slice_raw_banded_plain(sg, z, band, max_chain, select, k)
+    return slice_raw_kernel(sg, z.contiguous(), band, max_chain, select, k)
+
+
+def check_raw_args(sg: SortedGeom, z, band: int, max_chain: int,
+                   select: str, k: int) -> None:
+    """Raise unless the raw-loop kernel takes these arguments: the
+    slice-stack kernel's checks on (sg, z[:, None]) (dtypes, shapes,
+    contiguity, alignment, one device, band and k), z of shape (B,),
+    max_chain and select.  Reads metadata only."""
+    if z.dim() != 1:
+        raise ValueError(f"z must be (B,), one plane per bone, not "
+                         f"{tuple(z.shape)}")
+    check_kernel_args(sg, z[:, None], 2, band, k)
+    if not 1 <= max_chain <= RAW_MAX_CHAIN:
+        raise ValueError(f"max_chain {max_chain} outside the kernel's "
+                         f"[1, {RAW_MAX_CHAIN}]")
+    if select not in SELECTS:
+        raise ValueError(select)
+
+
+def slice_raw_kernel(sg: SortedGeom, z, band: int, max_chain: int,
+                     select: str, k: int):
+    """One launch of csrc/slice_raw.cu over the planes z (B,) of a bone
+    batch (CUDA tensors; band and k already clamped): what
+    `slice_raw_banded_plain` returns.  Raises on arguments the kernel does
+    not take, on a failed build and on a refused launch."""
+    check_raw_args(sg, z, band, max_chain, select, k)
+    if z.device.type != "cuda":
+        raise ValueError(f"the raw-loop kernel runs on CUDA tensors, not "
+                         f"{z.device}")
+    lib = kernels.library()
+    n_bones, dev = z.shape[0], z.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    points = torch.empty((n_bones, max_chain, 2), **f32)
+    n = torch.empty((n_bones,), dtype=torch.int64, device=dev)
+    area = torch.empty((n_bones,), **f32)
+    centroid = torch.empty((n_bones, 2), **f32)
+    overflow = torch.empty((n_bones,), dtype=torch.bool, device=dev)
+    rc = lib.slice_raw_launch(
+        sg.fvt.data_ptr(), sg.ids.data_ptr(), sg.z_mm.data_ptr(),
+        sg.z_key.data_ptr(), sg.cummax_z_max.data_ptr(), z.data_ptr(),
+        points.data_ptr(), n.data_ptr(), area.data_ptr(),
+        centroid.data_ptr(), overflow.data_ptr(), sg.z_key.shape[-1],
+        n_bones, band, k, max_chain, SELECTS.index(select), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"slice_raw kernel launch failed: CUDA error {rc}")
+    global raw_launch_count
+    if n_bones:  # no bones, no launch
+        raw_launch_count += 1
+    return RawLoop(points, n, area, centroid), overflow
+
+
+def slice_raw_banded_plain(sg: SortedGeom, z, band: int, max_chain: int,
+                           select: str, k: int):
+    """The plain composition behind `slice_raw_banded` (band and k
+    already clamped): window, compaction, labels, per-label sums, the
+    pick, the loop's smallest original face id and its order."""
+    if select not in SELECTS:
+        raise ValueError(select)
     lo, _start, win_over = _window_starts(sg, z[:, None], band)
     lo, win_over = lo[:, 0], win_over[:, 0]
     flat, base = _flat(sg)
@@ -649,31 +729,38 @@ def slice_raw_banded(sg: SortedGeom, z, band: int, max_chain: int = 2048,
     crossed, start, end, succ, orig, over, _open = _compact_slice(
         flat, zmm_w, lo, z, k, base
     )
+    return raw_loop(crossed, start, end, succ, orig, max_chain,
+                    select), win_over | over
+
+
+def raw_loop(crossed, start, end, succ, orig, max_chain: int,
+             select: str) -> RawLoop:
+    """The loop that `select` picks among the rows (B, k) of a compaction
+    (`_compact_slice`'s crossed, start, end, succ and orig), ordered from
+    its member with the smallest original face id: labels, per-label
+    sums, the pick and the pointer-jumping order."""
+    k = succ.shape[-1]
     orig = orig.to(torch.int64)
     lab = _label_loops(crossed, succ)
     area, centroid, count, mean_pt = _loop_stats(crossed, start, end, lab, k)
     if select == "largest":
         best = torch.argmax(area[:, :k], dim=1)
-    elif select == "central":
+    else:
         score = torch.abs(mean_pt[:, :k, 0]) + torch.abs(mean_pt[:, :k, 1])
         score = torch.where(count[:, :k] >= 3, score, torch.inf)
         best = torch.argmin(score, dim=1)
-    else:
-        raise ValueError(select)
     pick = best[:, None]
     n_best = count.gather(1, pick)[:, 0]
-    min_orig = torch.full((z.shape[0], k + 1), _BIG, dtype=torch.int64,
-                          device=z.device)
+    min_orig = torch.full((succ.shape[0], k + 1), _BIG, dtype=torch.int64,
+                          device=succ.device)
     min_orig.scatter_reduce_(1, lab, torch.where(crossed, orig, _BIG),
                              reduce="amin")
     is_rep = crossed & (lab == pick) & (orig == min_orig.gather(1, lab))
     points = _order_loop(crossed, start, succ, lab, best, n_best, max_chain,
                          is_rep)
-    return (
-        RawLoop(points, n_best, area.gather(1, pick)[:, 0],
-                torch.take_along_dim(centroid, pick[..., None], dim=1)[:, 0]),
-        win_over | over,
-    )
+    return RawLoop(points, n_best, area.gather(1, pick)[:, 0],
+                   torch.take_along_dim(centroid, pick[..., None],
+                                        dim=1)[:, 0])
 
 
 def _crossing_topology(geom: FaceGeom, z):

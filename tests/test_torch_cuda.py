@@ -272,3 +272,115 @@ def test_cuda_bf16_conv_rounds_once(card, dims):
     assert got.dtype == bf
     assert err(got) <= 1.01 * err(ref.to(bf))
     assert float((got != cpu).double().mean()) < 1e-3
+
+
+def _merging_rows(seed, k, n_rows):
+    """Successor rows of every kind the walk takes: in even rows a random
+    map (chains merge), in odd rows a random permutation (cycles); then a
+    tenth of the slots is cut (its own successor, out of range at K or
+    beyond, or negative), and nc is random in [0, K]."""
+    rng = np.random.default_rng(seed)
+    slots = np.arange(k)
+    succ = rng.integers(0, k, size=(n_rows, k))
+    succ[1::2] = np.stack([rng.permutation(k) for _ in range(n_rows // 2)])
+    u = rng.random((n_rows, k))
+    succ = np.where(u < 0.04, slots, succ)
+    succ = np.where((u >= 0.04) & (u < 0.07),
+                    k + rng.integers(0, k, size=(n_rows, k)), succ)
+    succ = np.where((u >= 0.07) & (u < 0.1),
+                    -1 - rng.integers(0, 3, size=(n_rows, k)), succ)
+    nc = rng.integers(0, k + 1, size=n_rows)
+    return (succ.astype(np.int32),
+            (slots < nc[:, None]).astype(np.int32))
+
+
+@pytest.mark.parametrize("k", [7, 384, 2048])
+def test_cuda_walk_of_merging_rows_matches_plain(card, k):
+    """The walk kernel against the plain walk, exactly, on rows whose
+    chains merge, cycle, leave nc, leave the row or reach a negative
+    successor, and on random loop rows; k up to chain_walk_max_k."""
+    for succ, crossed in (_merging_rows(5, k, 64),
+                          _random_rows(6, k=k, n_rows=64)):
+        succ, crossed = (torch.as_tensor(a, device=card)
+                         for a in (succ, crossed))
+        got = chain_walk.chain_walk_marked(succ, crossed)
+        want = chain_walk.chain_walk_plain(succ, crossed)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def four_bones(tmp_path_factory):
+    """Four distinct tiny bones, their batched SortedGeom on the card and
+    their z range (B,)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    tmp = tmp_path_factory.mktemp("raw")
+    specs = []
+    for i, side in enumerate(("left", "right", "left", "right")):
+        v, f = synthetic_humerus(side=side, n_rings=40, n_theta=32,
+                                 rng_transform=np.random.default_rng(60 + i))
+        stl.write_stl(tmp / f"b{i}.stl", v, f)
+        specs.append(ingest.load_bone(tmp / f"b{i}.stl", config=CFG))
+    bones = B.stack_bones(specs, "cuda")
+    v_obb = geom.transform_pts(bones.verts, bones.obb_transform)
+    sg = tsl.sorted_geom(v_obb, bones.faces, bones.neighbors, bones.face_orig)
+    return sg, bones.z_min, bones.z_max
+
+
+def _assert_raw_equal(got, want, loops_equal=True):
+    """n and overflow equal, points within 1e-5 mm; with loops_equal the
+    same loop (area within 0.01 mm^2, centroid within 1e-3 mm)."""
+    (g, g_over), (w, w_over) = got, want
+    assert torch.equal(g_over, w_over)
+    assert torch.equal(g.n, w.n)
+    assert float((g.points - w.points).abs().max()) <= 1e-5
+    if loops_equal:
+        assert float((g.area - w.area).abs().max()) <= 0.01
+        assert float((g.centroid - w.centroid).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("select", tsl.SELECTS)
+def test_cuda_raw_loop_matches_plain(card, four_bones, select):
+    """The raw-loop kernel, one launch for 4 bones, against the plain
+    composition on the card at three heights, and each bone's own launch
+    bit for bit."""
+    sg, z_min, z_max = four_bones
+    band = min(CFG.full.band, sg.z_key.shape[-1])
+    for rel in (0.3, 0.55, 0.8):
+        z = (z_min + rel * (z_max - z_min)).contiguous()
+        before = tsl.raw_launch_count
+        got = tsl.slice_raw_banded(sg, z, band, CFG.max_chain, select, k=512)
+        assert tsl.raw_launch_count == before + 1
+        k = min(512, band)
+        want = tsl.slice_raw_banded_plain(sg, z, band, CFG.max_chain, select,
+                                          k)
+        torch.cuda.synchronize()
+        _assert_raw_equal(got, want)
+        assert int(got[0].n.min()) > 10
+        for b in range(z.shape[0]):
+            one = tsl.slice_raw_kernel(tsl.SortedGeom(*(x[b:b + 1] for x in sg)),
+                                       z[b:b + 1], band, CFG.max_chain,
+                                       select, k)
+            for g, w in zip((*got[0], got[1]), (*one[0], one[1])):
+                assert torch.equal(g[b:b + 1], w)
+
+
+@pytest.mark.parametrize("select", tsl.SELECTS)
+def test_cuda_raw_loop_overflow_matches_plain(card, four_bones, select):
+    """k 24 below the planes' crossing counts: the chains break and their
+    ranks run past the count; the kernel places every point where the
+    plain composition does, those past n included."""
+    sg, z_min, z_max = four_bones
+    band = min(CFG.full.band, sg.z_key.shape[-1])
+    z = (z_min + 0.55 * (z_max - z_min)).contiguous()
+    got = tsl.slice_raw_banded(sg, z, band, CFG.max_chain, select, k=24)
+    want = tsl.slice_raw_banded_plain(sg, z, band, CFG.max_chain, select, 24)
+    torch.cuda.synchronize()
+    assert bool(want[1].all())
+    _assert_raw_equal(got, want, loops_equal=False)
+    past = torch.arange(CFG.max_chain, device=card) >= want[0].n[:, None]
+    assert float(want[0].points[past].abs().sum()) > 0

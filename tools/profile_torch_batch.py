@@ -35,7 +35,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-STAGES = ("slice_stack_kernel", "_compact_slice", "_post_walk",
+STAGES = ("slice_stack_kernel", "slice_raw_kernel", "_compact_slice",
+          "_post_walk",
           "chain_walk_marked", "sorted_geom", "_surgical_neck", "_canal",
           "_groove", "_anp_image_points", "segment_image", "sphere_segment",
           "_anp_from_mask", "_transepicondylar", "_metrics")
@@ -55,7 +56,8 @@ def _instrument():
     from shoulder_tpu_torch.ops import chain_walk, slicing
     from shoulder_tpu_torch.pipeline import landmarks as L
 
-    owner = {"slice_stack_kernel": slicing, "_compact_slice": slicing,
+    owner = {"slice_stack_kernel": slicing, "slice_raw_kernel": slicing,
+             "_compact_slice": slicing,
              "_post_walk": slicing, "sorted_geom": slicing,
              "chain_walk_marked": chain_walk,
              "segment_image": unet, "sphere_segment": segment}
@@ -127,7 +129,8 @@ def main():
     from shoulder_tpu_torch.ops import chain_walk, slicing
 
     def port_launches():
-        return slicing.launch_count + chain_walk.launch_count
+        return (slicing.launch_count + slicing.raw_launch_count
+                + chain_walk.launch_count)
 
     port0 = port_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -149,6 +152,7 @@ def main():
     by_name = {stage: sum(e.self_device_time_total for e in kernels
                           if f"::{kernel}" in e.key)
                for stage, kernel in (("slice_stack_kernel", "slice_stack_kernel"),
+                                     ("slice_raw_kernel", "slice_raw_kernel"),
                                      ("chain_walk_marked", "chain_walk_kernel"))}
     print("\nstage ranges (per batch): calls, host ms, kernel ms")
     for e in sorted((e for e in avgs if e.key in STAGES
@@ -166,7 +170,9 @@ def main():
               f"{e.key[:90]}")
     print("the port's own kernels (csrc/), as the trace names them:")
     for e in kernels:
-        if "slice_stack_kernel" in e.key or "chain_walk_kernel" in e.key:
+        if any(name in e.key for name in ("slice_stack_kernel",
+                                          "slice_raw_kernel",
+                                          "chain_walk_kernel")):
             print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  "
                   f"{e.key[:90]}")
     syncs = {e.key: e.count for e in avgs if e.key in (
