@@ -151,8 +151,33 @@ Phases (any failure raises, so the exit code is non-zero):
      seeded three quarters of the faces)
      (hits equal, points within 1e-3 mm) and fit_circle on the largest
      loops (within 1e-4 relative); no kernel launch.
+ 14. robustness, the JAX package's checks that run on the CPU there, each
+     batch exactly 3 slice-stack launches and 1 raw-loop launch:
+     (a) tests/test_rigid_invariance.py's bone under its 6 rigid frames
+     (default_rng(42)), one batch at DEFAULT_CONFIG with the UNet, each
+     frame one native OBB search: the spread of neck-shaft, retroversion
+     and radius each < 0.5, no side flip, anatomic-neck plane points
+     mapped back within 1.0 mm and normals within 0.5 deg;
+     (b) phase 11's cohorts again under segmenter="sphere" (its BoneSpecs
+     reused): every side as the JAX row calls it (the sphere arm calls 3
+     of 8 arthritic sides wrong there), healthy bones within 0.75 deg /
+     0.75 mm and arthritic bones within ACC_ARTHRITIC_GATE of their rows in
+     tools/eval_accuracy_sphere.json; then tests/test_segmenter_ab.py's
+     tripwire (default_rng(77), 4 bones per cohort, both arms): the UNet
+     arm no worse than the sphere arm by AB_MARGIN on |max| error;
+     (c) tests/test_ct_pitch_sweep.py's bone as its direct mesh and as a
+     1.0 and a 1.5 mm CT volume cut at 300 HU, segmented and meshed on the
+     card, a batch of 2 at tools/eval_ct_pitch.py's config (band 6144, k
+     1024): the same side, the deltas inside PITCH_BOUNDS and within 0.75
+     of the JAX rows in tools/eval_ct_pitch_results.json;
+     (d) phase 4's batch and tests/test_arthritic_cohort.py's cohort
+     (default_rng(7), tiny_config) under utils.nan_trap (every aten call's
+     and kernel launch's floating-point outputs checked for NaN,
+     uninitialized memory filled with NaN), after phase 6's sync counts:
+     no site, landmarks bit for bit the untrapped run's, and that test's
+     four checks on the cohort.
 
-Phases 4 and 7-11 ingest: in each, every bone takes one native ingest
+Phases 4, 7-11 and 14 ingest: in each, every bone takes one native ingest
 where it comes from an STL or a soup, and one native OBB search, and the
 numpy oracle runs never; each prints its ingest split (ms per bone of the
 STL read and weld, the soup weld, the OBB, head detection and the
@@ -160,10 +185,11 @@ presort).
 
 The bone STLs live in one temporary directory for the whole run.
 
-The last four lines: a JSON object of the host ingest per phase (counts,
+The last five lines: a JSON object of the host ingest per phase (counts,
 ms per bone of each stage, the host's CPU, phase 4's native and numpy
-times of bone 0), phase 13's and phase 11's results, a JSON object describing each kernel (launches in the
-main path's run, disagreement with the plain version, times, bound), the
+times of bone 0), phase 13's and phase 11's results, phase 14's results,
+a JSON object describing each kernel (launches in the main path's run
+and per phase, disagreement with the plain version, times, bound), the
 card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}.
 """
@@ -231,6 +257,29 @@ ACC_GATE = 0.75
 # tools/arthritic_divergence_torch.py traced it to the UNet's masks, and
 # models/unet._RoundOnce rounds once
 ACC_ARTHRITIC_GATE = (0.3, 0.3, 0.05)
+# phase 14a: tests/test_rigid_invariance.py's bone under its frames, and
+# its gates: the spread of each metric, plane points mapped back (mm) and
+# the normals' angle (deg)
+RIGID_FRAMES = 6
+RIGID_BONE = dict(length=285.0, head_radius=23.5, neck_shaft_deg=133.0,
+                  retroversion_deg=28.0, side="right")
+RIGID_GATES = dict(metric_ptp=0.5, point_ptp=1.0, normal_deg=0.5)
+# phase 14b: tests/test_segmenter_ab.py's cohorts, and the margin by which
+# the UNet arm may lose to the sphere arm on |max| error (deg, deg, mm)
+AB_PER_COHORT = 4
+AB_MARGIN = dict(ns=1.5, rv=2.0, rad=0.75)
+# phase 14c: tests/test_ct_pitch_sweep.py's envelope of the CT-vs-mesh
+# deltas per pitch (mm), and bench.py's gate against the JAX rows
+PITCH_BOUNDS = {1.0: dict(rv=2.0, ns=1.0, rad=0.75),
+                1.5: dict(rv=4.5, ns=2.0, rad=0.75)}
+PITCH_ISO_HU = 300.0
+# phase 14d: tests/test_arthritic_cohort.py's four variants (healthy first)
+ROBUST_VARIANTS = (
+    dict(),
+    dict(head_flattening=0.2, surface_noise=0.4),
+    dict(osteophyte_amp=3.0, surface_noise=0.3),
+    dict(head_flattening=0.25, osteophyte_amp=2.0, surface_noise=0.5),
+)
 # host-ingest stages timed per call: (stage, module, function)
 INGEST_STAGES = (
     ("read_weld_adjacency", "io.stl", "load_indexed"),
@@ -1391,6 +1440,14 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
             "unet_bound_by": unet_bound_by, "total_s": total_s}
 
 
+def tool_json(name):
+    """tools/<name> beside this script, parsed."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        name)
+    with open(path) as fh:
+        return json.load(fh)
+
+
 def load_tool(name):
     """tools/<name>.py beside this script, as a module."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
@@ -1653,15 +1710,16 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
             "ct_losses": ct_losses, "total_s": total_s}
 
 
-def accuracy_cohort(rng, arthritic):
-    """tests/test_accuracy_gate.py's cohort of ACC_PER_COHORT BoneSpecs
-    and truths from `rng` (healthy first, then arthritic, one stream),
-    through the port's spec_from_arrays."""
+def accuracy_cohort(rng, arthritic, n=ACC_PER_COHORT):
+    """tests/test_accuracy_gate.py's cohort of n BoneSpecs and truths from
+    `rng` (healthy first, then arthritic, one stream), through the port's
+    spec_from_arrays; with n = AB_PER_COHORT and default_rng(77),
+    tests/test_segmenter_ab.py's."""
     from shoulder_tpu_torch.io import ingest, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
 
     specs, truth, i = [], [], 0
-    while len(specs) < ACC_PER_COHORT:
+    while len(specs) < n:
         i += 1
         p = dict(
             length=float(rng.uniform(250, 310)),
@@ -1689,15 +1747,13 @@ def accuracy_cohort(rng, arthritic):
 
 def accuracy_phase(dev, rf, seg2d, smi):
     """Phase 11: the accuracy cohorts on the card, against the truth, the
-    accuracy gate's BOUNDS and the JAX package's committed rows."""
+    accuracy gate's BOUNDS and the JAX package's committed rows.  Each
+    cohort's result keeps its BoneSpecs and truths for phase 14."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.pipeline import batch as B
 
     t_phase = time.perf_counter()
-    rows_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "tools", "eval_accuracy_results.json")
-    with open(rows_path) as fh:
-        jax_rows = json.load(fh)
+    jax_rows = tool_json("eval_accuracy_results.json")
     rng = np.random.default_rng(2026)
     out = {}
     for name in ("healthy", "arthritic"):
@@ -1731,7 +1787,8 @@ def accuracy_phase(dev, rf, seg2d, smi):
                    "mean_err": err.mean(0).tolist(),
                    "max_abs_vs_jax": np.abs(vs_jax).max(0).tolist(),
                    "vs_jax": vs_jax.tolist(), "ingest_s": ingest_s,
-                   "batch_s": batch_s, "ingest": ingest}
+                   "batch_s": batch_s, "ingest": ingest, "specs": specs,
+                   "truth": truth}
         log(f"accuracy {name}: |error| max (ns, rv, radius) "
             f"{np.round(summary['max_abs_err'], 3)}, mean "
             f"{np.round(summary['mean_err'], 3)}, |port - JAX| max "
@@ -1756,6 +1813,405 @@ def accuracy_phase(dev, rf, seg2d, smi):
         out[name] = summary
     out["total_s"] = time.perf_counter() - t_phase
     log(f"accuracy phase: {out['total_s']:.1f} s in all ({smi})")
+    return out
+
+
+def rigid_frame(rng):
+    """tests/test_rigid_invariance.py's `_rigid`: (rotation, translation)
+    from a random unit quaternion and a shift within 150 mm."""
+    q = rng.normal(size=4)
+    q /= np.linalg.norm(q)
+    w, x, y, z = q
+    rot = np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ])
+    t = rng.uniform(-150, 150, size=3)
+    return rot, t
+
+
+def rigid_meshes():
+    """The rigid test's bone under its RIGID_FRAMES frames from
+    default_rng(42): ([(rotation, translation, float32 vertices)], int32
+    faces)."""
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+
+    v0, f = synthetic_humerus(**RIGID_BONE)
+    rng = np.random.default_rng(42)
+    frames = []
+    for _ in range(RIGID_FRAMES):
+        rot, t = rigid_frame(rng)
+        frames.append((rot, t, (v0 @ rot.T + t).astype(np.float32)))
+    return frames, f.astype(np.int32)
+
+
+def rigid_specs(frames, faces, cfg):
+    """One BoneSpec per frame, through the port's spec_from_arrays."""
+    from shoulder_tpu_torch.io import ingest, stl
+
+    nbr, wt = stl.edge_face_adjacency(faces)
+    return [ingest.spec_from_arrays(f"frame{i}", v, faces, nbr, wt,
+                                    config=cfg)
+            for i, (_, _, v) in enumerate(frames)]
+
+
+def rigid_spread(frames, lm):
+    """The rigid test's measures over the frames' landmarks `lm` (numpy):
+    each metric's spread, whether all are finite, the bones called left,
+    the spread of the anatomic-neck plane points mapped back to the
+    build frame (mm, largest over x, y, z) and the largest angle of a
+    mapped-back normal from frame 0's (deg)."""
+    pts, normals = [], []
+    for i, (rot, t, _) in enumerate(frames):
+        n = np.asarray(lm.anp_plane_normal[i]) @ rot
+        pts.append((np.asarray(lm.anp_plane_point[i]) - t) @ rot)
+        normals.append(n if n[2] >= 0 else -n)
+    angles = [np.degrees(np.arccos(np.clip(np.dot(normals[0], n), -1, 1)))
+              for n in normals[1:]]
+    metrics = ("neckshaft", "retroversion", "radius_curvature")
+    out = {name: float(np.ptp(getattr(lm, name))) for name in metrics}
+    out.update(
+        finite=bool(all(np.isfinite(getattr(lm, m)).all() for m in metrics)),
+        left=int(np.asarray(lm.side_is_left).sum()),
+        point_ptp=float(np.ptp(np.stack(pts), axis=0).max()),
+        normal_deg=float(max(angles)))
+    return out
+
+
+def rigid_failures(spread):
+    """The gates of tests/test_rigid_invariance.py that `spread`
+    (rigid_spread) fails: a right bone in every frame."""
+    g = RIGID_GATES
+    fails = [name for name in ("neckshaft", "retroversion",
+                               "radius_curvature")
+             if not spread[name] < g["metric_ptp"]]
+    fails += [name for name, ok in (
+        ("finite", spread["finite"]), ("side", spread["left"] == 0),
+        ("point_ptp", spread["point_ptp"] < g["point_ptp"]),
+        ("normal_deg", spread["normal_deg"] < g["normal_deg"])) if not ok]
+    return fails
+
+
+def pitch_config():
+    """tools/eval_ct_pitch.py's make_cfg: tiny_config's stacks with the
+    padded sizes of a 1.0 mm CT mesh (band 6144, k 1024)."""
+    from shoulder_tpu_torch.config import SliceSetConfig, tiny_config
+
+    return dataclasses.replace(
+        tiny_config(max_faces=300000, max_verts=160000),
+        full=SliceSetConfig(zslice_num=64, interp_num=64, band=6144),
+        proximal=SliceSetConfig(zslice_num=96, interp_num=128, band=6144),
+        distal=SliceSetConfig(zslice_num=48, interp_num=96, band=6144),
+        max_chain=1024,
+        slice_compact_k=1024,
+    )
+
+
+def pitch_mesh_spec(cfg):
+    """The pitch sweep's direct mesh: its bone, 220 rings of 192."""
+    from shoulder_tpu_torch.io import ingest, stl
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+
+    v, f = synthetic_humerus(n_rings=220, n_theta=192, **CT_BONE_KW)
+    nb, wt = stl.edge_face_adjacency(f)
+    return ingest.spec_from_arrays("direct", v, f, nb, wt, config=cfg)
+
+
+def pitch_ct_spec(pitch, cfg, device):
+    """The pitch sweep's CT bone at `pitch` mm: a 320 x 144 x 144 mm
+    volume (seed 1, 15 HU noise) cut at PITCH_ISO_HU, marching tets on
+    `device`, the native weld."""
+    from shoulder_tpu_torch.pipeline import ct
+
+    shape = tuple(int(round(mm / pitch)) for mm in (320.0, 144.0, 144.0))
+    vol, origin, spacing = ct.synth_ct_volume(
+        shape=shape, spacing=(pitch,) * 3, seed=1, noise_hu=15.0,
+        **CT_BONE_KW)
+    seg, iso = ct.segment_volume(vol, "threshold", iso_hu=PITCH_ISO_HU,
+                                 device=device)
+    return ct.volume_to_spec(seg, origin, spacing, iso, config=cfg,
+                             max_tris=CT_MAX_TRIS, device=device)
+
+
+def pitch_deltas(lm):
+    """CT bone (1) minus direct mesh (0) of a batch's landmarks (numpy),
+    keyed as tools/eval_ct_pitch_results.json's rows."""
+    return {f"d_{key}": float(getattr(lm, name)[1]) - float(
+        getattr(lm, name)[0]) for key, name in (
+            ("rv", "retroversion"), ("ns", "neckshaft"),
+            ("rad", "radius_curvature"))}
+
+
+def pitch_row(pitch):
+    """The JAX package's row of tools/eval_ct_pitch_results.json."""
+    return next(r for r in tool_json("eval_ct_pitch_results.json")["rows"]
+                if r["pitch_mm"] == pitch)
+
+
+def robust_cohort(td, cfg):
+    """tests/test_arthritic_cohort.py's cohort: ROBUST_VARIANTS from one
+    default_rng(7) stream, 60 rings of 48, written as STLs into td and
+    loaded by the port's load_bone at cfg."""
+    from shoulder_tpu_torch.io import ingest, stl
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+
+    rng = np.random.default_rng(7)
+    specs = []
+    for i, kw in enumerate(ROBUST_VARIANTS):
+        v, f = synthetic_humerus(rng_transform=rng, n_rings=60, n_theta=48,
+                                 **kw)
+        path = os.path.join(td, f"robust{i}.stl")
+        stl.write_stl(path, v, f)
+        specs.append(ingest.load_bone(path, config=cfg))
+    return specs
+
+
+def robust_failures(lm):
+    """The checks of tests/test_arthritic_cohort.py that the cohort's
+    landmarks `lm` (numpy) fail."""
+    finite = all(np.isfinite(getattr(lm, name)).all() for name in (
+        "neckshaft", "retroversion", "radius_curvature", "canal_axis",
+        "te_axis"))
+    return [name for name, ok in (
+        ("finite", finite),
+        ("qc_sphere_resid", lm.qc_sphere_resid[3] > lm.qc_sphere_resid[0]),
+        ("healthy bone", 60.0 < lm.neckshaft[0] < 180.0
+         and lm.radius_curvature[0] > 5.0),
+        ("overflow", not lm.qc_slice_overflow.any())) if not ok]
+
+
+def one_batch(name, launches):
+    """Raise unless the launches since reset_launches() are one batch's:
+    3 slice-stack, 1 raw-loop, no walk; record them in launches[name]."""
+    launches[name] = launch_counts()
+    if launches[name] != (3, 1, 0):
+        raise AssertionError(f"{name}: (slice-stack, raw-loop, walk) "
+                             f"launches {launches[name]}, expected (3, 1, 0)")
+    reset_launches()
+
+
+def landmark_batch(specs, dev, rf, cfg, seg2d=None):
+    """compute_landmarks_batch of specs on dev, as the JAX tests call it
+    (chunk 16)."""
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    return B.compute_landmarks_batch(B.stack_bones(specs, dev), rf, cfg=cfg,
+                                     seg_model=seg2d, chunk=16)
+
+
+def rigid_leg(dev, rf, seg2d, smi, launches, ingest):
+    """Phase 14a: the rigid test's bone under its frames, one batch at
+    DEFAULT_CONFIG with the UNet, under the rigid test's gates."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    t0 = time.perf_counter()
+    with ingest_split(split := {}):
+        frames, faces = rigid_meshes()
+        specs = rigid_specs(frames, faces, DEFAULT_CONFIG)
+    ingest["rigid"] = ingest_check("robustness rigid", split, smi,
+                                   n_specs=RIGID_FRAMES)
+    reset_launches()
+    lm = B.landmarks_to_numpy(landmark_batch(specs, dev, rf, DEFAULT_CONFIG,
+                                             seg2d))
+    one_batch("rigid", launches)
+    spread = rigid_spread(frames, lm)
+    out = dict(spread, neckshaft_deg=lm.neckshaft.tolist(),
+               retroversion_deg=lm.retroversion.tolist(),
+               radius_mm=lm.radius_curvature.tolist(),
+               s=time.perf_counter() - t0)
+    log(f"robustness rigid: {RIGID_FRAMES} frames in one batch, spread "
+        f"neck-shaft {spread['neckshaft']:.4f}, retroversion "
+        f"{spread['retroversion']:.4f}, radius "
+        f"{spread['radius_curvature']:.4f}, bones called left "
+        f"{spread['left']}, plane points {spread['point_ptp']:.4f} mm, "
+        f"normals {spread['normal_deg']:.4f} deg (gates {RIGID_GATES}); "
+        f"{out['s']:.1f} s ({smi})")
+    if fails := rigid_failures(spread):
+        raise AssertionError(f"robustness rigid: fails {fails}")
+    return out
+
+
+def segmenter_leg(dev, rf, seg2d, acc, smi, launches, ingest):
+    """Phase 14b: phase 11's cohorts (`acc`) under the sphere segmenter
+    against tools/eval_accuracy_sphere.json, then the A/B tripwire."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    t0 = time.perf_counter()
+    sphere = dataclasses.replace(DEFAULT_CONFIG, segmenter="sphere")
+    rows = tool_json("eval_accuracy_sphere.json")
+    out = {"sphere": {}, "tripwire": {}}
+    for name, gate in (("healthy", (ACC_GATE,) * 3),
+                       ("arthritic", ACC_ARTHRITIC_GATE)):
+        specs, truth = acc[name]["specs"], acc[name]["truth"]
+        reset_launches()
+        lm = B.landmarks_to_numpy(landmark_batch(specs, dev, rf, sphere))
+        one_batch(f"sphere {name}", launches)
+        got = np.stack([lm.neckshaft, lm.retroversion, lm.radius_curvature],
+                       1).astype(np.float64)
+        want = np.array([[t["neck_shaft_deg"], t["retroversion_deg"],
+                          t["head_radius"]] for t in truth])
+        ref = np.array([[r["ns"], r["rv"], r["r"]]
+                        for r in rows[name]["rows"]])
+        if not np.array_equal(want[:, 0], [r["ns_truth"]
+                                           for r in rows[name]["rows"]]):
+            raise AssertionError(f"robustness sphere {name}: the cohort is "
+                                 f"not the rows' cohort")
+        vs_jax = got - ref
+        for i, t in enumerate(truth):
+            log(f"robustness sphere {name} bone {i} ({t['side']}): port "
+                f"{np.round(got[i], 4)}, JAX row {np.round(ref[i], 4)}, "
+                f"truth {np.round(want[i], 4)}, port - JAX "
+                f"{np.round(vs_jax[i], 4)}")
+        out["sphere"][name] = {"vs_jax": vs_jax.tolist(),
+                               "max_abs_vs_jax":
+                                   np.abs(vs_jax).max(0).tolist()}
+        # the JAX package's sphere arm calls some arthritic sides wrong
+        # (its rows' side_ok): the port must call each side as it does
+        side_ok = [bool(x) == (t["side"] == "left")
+                   for x, t in zip(lm.side_is_left, truth)]
+        out["sphere"][name]["side_ok"] = side_ok
+        if side_ok != [r["side_ok"] for r in rows[name]["rows"]]:
+            raise AssertionError(f"robustness sphere {name}: a side differs "
+                                 f"from its JAX row's")
+        if not (np.abs(vs_jax) < gate).all():
+            raise AssertionError(f"robustness sphere {name}: a bone lies "
+                                 f"beyond {gate} of its JAX row")
+    rng = np.random.default_rng(77)
+    for name in ("healthy", "arthritic"):
+        with ingest_split(split := {}):
+            specs, truth = accuracy_cohort(rng, name == "arthritic",
+                                           AB_PER_COHORT)
+        ingest[f"tripwire {name}"] = ingest_check(
+            f"robustness tripwire {name}", split, smi)
+        want = np.array([[t["neck_shaft_deg"], t["retroversion_deg"],
+                          t["head_radius"]] for t in truth])
+        err = {}
+        for seg in ("unet", "sphere"):
+            reset_launches()
+            lm = B.landmarks_to_numpy(landmark_batch(
+                specs, dev, rf,
+                dataclasses.replace(DEFAULT_CONFIG, segmenter=seg),
+                seg2d if seg == "unet" else None))
+            one_batch(f"tripwire {name} {seg}", launches)
+            err[seg] = np.abs(np.stack([lm.neckshaft, lm.retroversion,
+                                        lm.radius_curvature], 1) - want)
+        worse = err["unet"].max(0) - err["sphere"].max(0)
+        out["tripwire"][name] = {seg: e.tolist() for seg, e in err.items()}
+        out["tripwire"][name]["unet_worse_by"] = worse.tolist()
+        log(f"robustness tripwire {name}: |max| error (ns, rv, radius) unet "
+            f"{np.round(err['unet'].max(0), 3)}, sphere "
+            f"{np.round(err['sphere'].max(0), 3)}, unet worse by "
+            f"{np.round(worse, 3)} (margin {AB_MARGIN})")
+        if not (np.isfinite(err["unet"]).all()
+                and (worse < [AB_MARGIN[m] for m in ("ns", "rv", "rad")]
+                     ).all()):
+            raise AssertionError(f"robustness tripwire {name}: the UNet arm "
+                                 f"loses to the sphere arm beyond the margin")
+    out["s"] = time.perf_counter() - t0
+    log(f"robustness segmenters: {out['s']:.1f} s ({smi})")
+    return out
+
+
+def ct_pitch_leg(dev, rf, smi, launches, ingest):
+    """Phase 14c: the pitch sweep's bone as its direct mesh and as a CT
+    volume at each of PITCH_BOUNDS' pitches, segmented and meshed on the
+    card, against the bounds and the JAX rows."""
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    t0 = time.perf_counter()
+    cfg = pitch_config()
+    with ingest_split(split := {}):
+        mesh = pitch_mesh_spec(cfg)
+        cts = {pitch: pitch_ct_spec(pitch, cfg, dev) for pitch in PITCH_BOUNDS}
+    ingest["ct_pitch"] = ingest_check("robustness ct pitch", split, smi,
+                                      n_specs=1 + len(PITCH_BOUNDS))
+    out = {}
+    for pitch, bnd in PITCH_BOUNDS.items():
+        reset_launches()
+        lm = B.landmarks_to_numpy(landmark_batch([mesh, cts[pitch]], dev, rf,
+                                                 cfg))
+        one_batch(f"ct {pitch} mm", launches)
+        d, row = pitch_deltas(lm), pitch_row(pitch)
+        same_side = bool(lm.side_is_left[0] == lm.side_is_left[1])
+        out[pitch] = {"deltas": d, "jax_row": {key: row[key] for key in d},
+                      "faces": cts[pitch].n_faces, "same_side": same_side}
+        log(f"robustness ct {pitch} mm ({cts[pitch].n_faces} faces): "
+            + ", ".join(f"{key} {d[key]:+.5f} (JAX {row[key]:+.5f})"
+                        for key in d)
+            + f"; bounds {bnd}, same side {same_side}")
+        if not (same_side and not lm.qc_slice_overflow.any()
+                and all(abs(d[f"d_{key}"]) < b for key, b in bnd.items())
+                and all(abs(d[key] - row[key]) < ACC_GATE for key in d)):
+            raise AssertionError(f"robustness ct {pitch} mm: outside the "
+                                 f"bounds or {ACC_GATE} from the JAX row")
+    out["s"] = time.perf_counter() - t0
+    log(f"robustness ct pitches: {out['s']:.1f} s ({smi})")
+    return out
+
+
+def nan_trap_leg(td, dev, rf, seg2d, bones, lm, smi, launches, ingest):
+    """Phase 14d: phase 4's batch (`bones`, its landmarks `lm`) and the
+    arthritic cohort under the NaN trap: no site, and the landmarks bit
+    for bit the untrapped run's.  Each check waits for the card, so this
+    runs after phase 6's sync counts and outside any timed region."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG, tiny_config
+    from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.utils import nan_trap
+
+    t0 = time.perf_counter()
+    tiny = tiny_config()
+    with ingest_split(split := {}):
+        robust = B.stack_bones(robust_cohort(td, tiny), dev)
+    ingest["arthritic"] = ingest_check("robustness arthritic", split, smi,
+                                       n_specs=len(ROBUST_VARIANTS))
+    reset_launches()
+    lm_a = B.compute_landmarks_batch(robust, rf, cfg=tiny, chunk=16)
+    one_batch("arthritic cohort", launches)
+    if fails := robust_failures(B.landmarks_to_numpy(lm_a)):
+        raise AssertionError(f"robustness arthritic cohort: fails {fails}")
+    out = {}
+    for name, batch, cfg, seg, ref in (
+            ("phase 4 batch", bones, DEFAULT_CONFIG, seg2d, lm),
+            ("arthritic cohort", robust, tiny, None, lm_a)):
+        with nan_trap.trap(raise_first=False) as mode:
+            got = B.compute_landmarks_batch(batch, rf, cfg=cfg,
+                                            seg_model=seg, chunk=16)
+        one_batch(f"nan trap {name}", launches)
+        res = out[name] = {
+            "aten_calls": mode.calls, "n_sites": len(mode.sites),
+            "sites": [dataclasses.asdict(s) for s in mode.sites[:20]],
+            "equal": same_stack(got, ref)}
+        log(f"robustness nan trap, {name}: {mode.calls} aten calls and 4 "
+            f"kernel launches checked, {len(mode.sites)} sites "
+            f"{mode.sites[:3]}, landmarks bit for bit the untrapped run's: "
+            f"{res['equal']}")
+        if mode.sites or not res["equal"]:
+            raise AssertionError(f"robustness nan trap, {name}: a NaN site "
+                                 f"or landmarks that differ")
+    out["s"] = time.perf_counter() - t0
+    log(f"robustness nan trap: {out['s']:.1f} s ({smi})")
+    return out
+
+
+def robustness_phase(td, dev, rf, seg2d, acc, bones, lm, smi):
+    """Phase 14: the JAX package's robustness checks on the card, each
+    leg's batches one launch of each kernel per stack: (a) rigid frames,
+    (b) the sphere segmenter and the A/B tripwire, (c) both CT pitches,
+    (d) the NaN trap."""
+    t_phase = time.perf_counter()
+    launches, ingest = {}, {}
+    out = {"rigid": rigid_leg(dev, rf, seg2d, smi, launches, ingest),
+           "segmenters": segmenter_leg(dev, rf, seg2d, acc, smi, launches,
+                                       ingest),
+           "ct_pitch": ct_pitch_leg(dev, rf, smi, launches, ingest),
+           "nan_trap": nan_trap_leg(td, dev, rf, seg2d, bones, lm, smi,
+                                    launches, ingest),
+           "launches": launches, "ingest": ingest}
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"robustness phase: {out['total_s']:.1f} s in all ({smi})")
     return out
 
 
@@ -2352,6 +2808,8 @@ def main(td):
         mesh_res = mesh_phase(bones, lm, paths, cohort_res, smi)
     ingest_res["mesh"] = ingest_check("mesh", split, smi, n_specs=BATCH)
     sections = mesh_train_sections_phase(bones, lm, smi)
+    robust = robustness_phase(td, dev, rf, seg, acc, bones, lm, smi)
+    ingest_res["robustness"] = robust.pop("ingest")
 
     print(json.dumps({"ingest": ingest_res,
                       "mesh_train_sections": sections, "accuracy": {
@@ -2359,6 +2817,7 @@ def main(td):
                ("max_abs_err", "mean_err", "max_abs_vs_jax", "vs_jax",
                 "ingest_s", "batch_s")}
         for name in ("healthy", "arthritic")}}))
+    print(json.dumps({"robustness": robust}))
 
     prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{
@@ -2373,7 +2832,10 @@ def main(td):
                                "cohort": cohort_launches[0],
                                "ct": ct_res["launches"],
                                "corpus": train_res["launches"],
-                               "mesh": mesh_res["launches"]},
+                               "mesh": mesh_res["launches"],
+                               "robustness": {
+                                   key: v[0] for key, v in
+                                   robust["launches"].items()}},
         "max_abs_err": max(w[key] for w in (worst, ct_worst, train_worst)
                            for key in ("contour_mm", "centroid_mm")),
         "max_area_err_mm2": max(w[key]
@@ -2427,7 +2889,10 @@ def main(td):
                                "cohort": cohort_launches[1],
                                "ct": ct_res["raw_launches"],
                                "corpus": 0,
-                               "mesh": mesh_res["raw_launches"]},
+                               "mesh": mesh_res["raw_launches"],
+                               "robustness": {
+                                   key: v[1] for key, v in
+                                   robust["launches"].items()}},
         "max_abs_err": max(w[key] for w in (raw_worst, ct_raw_worst)
                            for key in ("points_mm", "centroid_mm")),
         "max_area_err_mm2": max(raw_worst["area_mm2"],
