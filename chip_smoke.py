@@ -176,22 +176,33 @@ Phases (any failure raises, so the exit code is non-zero):
      uninitialized memory filled with NaN), after phase 6's sync counts:
      no site, landmarks bit for bit the untrapped run's, and that test's
      four checks on the cohort.
+ 15. measurement entry points: bench_torch.run_bench at DEFAULT_CONFIG,
+     batch 8, 5 reps (bench.py's protocol: one bone replicated, forest
+     and UNet loaded once, a warm-up, one run's launches and
+     synchronizing calls counted, 5 synchronized reps): bench.py's gate
+     passed, 3 slice-stack and 1 raw-loop launches per batch run, no walk
+     launch or plain compaction, launches and synchronizing calls equal
+     to phase 6's batch of 8; its JSON line and p50 printed beside phase
+     6's p50; then tools/bench_cohort_torch.run_cohort with the tool's
+     defaults (4 synthetic bones x 16 = 64, batch 8, a cold and a warm
+     pass): 64 rows, each side its synthetic truth, 3 and 1 launches per
+     batch.
 
-Phases 4, 7-11 and 14 ingest: in each, every bone takes one native ingest
-where it comes from an STL or a soup, and one native OBB search, and the
-numpy oracle runs never; each prints its ingest split (ms per bone of the
-STL read and weld, the soup weld, the OBB, head detection and the
-presort).
+Phases 4, 7-11, 14 and 15 ingest: in each, every bone takes one native
+ingest where it comes from an STL or a soup, and one native OBB search,
+and the numpy oracle runs never; each prints its ingest split (ms per
+bone of the STL read and weld, the soup weld, the OBB, head detection
+and the presort).
 
 The bone STLs live in one temporary directory for the whole run.
 
-The last five lines: a JSON object of the host ingest per phase (counts,
+The last lines: a JSON object of the host ingest per phase (counts,
 ms per bone of each stage, the host's CPU, phase 4's native and numpy
 times of bone 0), phase 13's and phase 11's results, phase 14's results,
-a JSON object describing each kernel (launches in the main path's run
-and per phase, disagreement with the plain version, times, bound), the
-card's name and power limit as nvidia-smi gives them, and
-{"ok": true, "device": {...}}.
+phase 15's results, a JSON object describing each kernel (launches in
+the main path's run and per phase, disagreement with the plain version,
+times, bound), the card's name and power limit as nvidia-smi gives them,
+and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -200,17 +211,18 @@ import dataclasses
 import importlib
 import importlib.util
 import inspect
+import io
 import json
 import os
-import subprocess
 import tempfile
 import time
-import warnings
 
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from shoulder_tpu_torch.utils.bench import card, launch_counts, reset_launches
 
 BATCH = 8
 REPS = 5
@@ -295,15 +307,6 @@ NUMPY_ORACLE = (("io.stl", "load_indexed_numpy"), ("host.obb", "search_numpy"))
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card():
-    """The first card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def timed_cuda(fn, reps):
@@ -409,24 +412,6 @@ def plain_raw_banded(sg, z, band, max_chain=2048, select="largest", k=512):
     band = min(band, sg.z_key.shape[-1])
     return slicing.slice_raw_banded_plain(sg, z, band, max_chain, select,
                                           min(k, band))
-
-
-def reset_launches():
-    """Every kernel wrapper's launch count set to 0."""
-    from shoulder_tpu_torch.ops import chain_walk, slicing
-
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
-    slicing.raw_launch_count = 0
-
-
-def launch_counts():
-    """(slice-stack, raw-loop, standalone walk) launches since
-    reset_launches()."""
-    from shoulder_tpu_torch.ops import chain_walk, slicing
-
-    return (slicing.launch_count, slicing.raw_launch_count,
-            chain_walk.launch_count)
 
 
 @contextlib.contextmanager
@@ -1450,8 +1435,14 @@ def tool_json(name):
 
 def load_tool(name):
     """tools/<name>.py beside this script, as a module."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                        f"{name}.py")
+    return load_script(os.path.join("tools", f"{name}.py"))
+
+
+def load_script(rel):
+    """The Python file at `rel` under this script's directory, as a
+    module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    name = os.path.splitext(os.path.basename(rel))[0]
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -2256,9 +2247,29 @@ def spec_equal(a, b):
                for f in dataclasses.fields(a) if f.name != "name")
 
 
+def in_turns(runs, pairs=REPS + 1):
+    """Synchronized ms of each of two calls (`runs`, name -> callable),
+    in turns (a, b, b, a, ...), `pairs` of each, after one warm call
+    each: {name: [...]}."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    (a, fa), (b, fb) = runs.items()
+    timed(fa)
+    timed(fb)
+    out = {a: [], b: []}
+    for i in range(pairs):
+        for name in ((a, b) if i % 2 == 0 else (b, a)):
+            out[name].append(timed(runs[name]))
+    return out
+
+
 def ab_timing(bones, rf, seg, pairs=REPS + 1):
-    """Synchronized batch ms of the main path with the raw-loop kernel
-    and with the plain raw loop (plain_raw_banded), in turns (plain,
+    """Synchronized batch ms of the main path with the plain raw loop
+    (plain_raw_banded) and with the raw-loop kernel, in turns (plain,
     kernel, kernel, plain, ...), `pairs` of each, after one warm run
     each: {"plain": [...], "kernel": [...]}."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
@@ -2268,19 +2279,11 @@ def ab_timing(bones, rf, seg, pairs=REPS + 1):
     def run(plain):
         with (swapped(slicing, "slice_raw_banded", plain_raw_banded)
               if plain else contextlib.nullcontext()):
-            t0 = time.perf_counter()
             B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
                                       seg_model=seg)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3
 
-    run(True)
-    run(False)
-    out = {"plain": [], "kernel": []}
-    for i in range(pairs):
-        for plain in ((True, False) if i % 2 == 0 else (False, True)):
-            out["plain" if plain else "kernel"].append(run(plain))
-    return out
+    return in_turns({"plain": lambda: run(True),
+                     "kernel": lambda: run(False)}, pairs)
 
 
 def batch_timing(bones, rf, seg, smi, reps=REPS):
@@ -2291,10 +2294,9 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
     (the second's synchronizing calls counted: the first run so watched in
     a process counts one more, whichever path it takes), then `reps` warm
     synchronized runs (p50)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.utils import bench
 
     n = bones.verts.shape[0]
 
@@ -2304,28 +2306,11 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
 
     run()
     torch.cuda.synchronize()
-    port0 = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    port = sum(launch_counts()) - sum(port0)
-    api = {e.key: e.count for e in prof.key_averages()
-           if "LaunchKernel" in e.key}
-    busy_ms = load_tool("profile_torch_batch")._busy_ms(prof)
-
-    for _ in range(2):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                run()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    counted = bench.count_launches(run)
+    api, port = counted["launch_api"], counted["port_launches"]
+    wall_ms = counted["wall_ms"]
+    busy_ms = load_tool("profile_torch_batch")._busy_ms(counted["prof"])
+    syncs = bench.count_syncs(run)
 
     lat = []
     resident = torch.cuda.memory_allocated()
@@ -2339,7 +2324,7 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
     res = {"bones": n, "cudaLaunchKernel": api.get("cudaLaunchKernel", 0),
            "resident_bytes": resident, "peak_bytes": peak,
            "launch_api": api, "port_launches": port,
-           "launches": sum(api.values()) + port, "syncs": syncs,
+           "launches": counted["launches"], "syncs": syncs,
            "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms, "batch_ms": lat,
            "p50_ms": float(np.median(lat)) if lat else None}
@@ -2352,6 +2337,109 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
            f"{resident / 2**20:.1f} MiB resident {peak / 2**20:.1f} MiB"
            if lat else "") + f" ({smi})")
     return res
+
+
+def bench_phase(phase6, bones, rf, seg, smi):
+    """Phase 15: the measurement entry points on the card.  bench_torch.py
+    at DEFAULT_CONFIG, batch BATCH, REPS reps: its gate passed, 3
+    slice-stack and 1 raw-loop launches per batch run, no walk launch or
+    plain compaction, and one run's launches and synchronizing calls
+    equal to phase 6's batch of BATCH (`phase6`); its batch (one bone
+    replicated) and phase 4's (`bones`, BATCH bones) timed in turns, each
+    profiled once for the device's busy time; then
+    tools/bench_cohort_torch.py with its defaults (4 synthetic bones x
+    16, batch 8, a cold and a warm pass): a row per bone, each bone's
+    side its synthetic truth, 3 and 1 launches per batch."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.ops import slicing
+    from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.utils import bench
+
+    bench_torch = load_script("bench_torch.py")
+    bench_cohort = load_script(os.path.join("tools",
+                                            "bench_cohort_torch.py"))
+    t_phase = time.perf_counter()
+    out, ingest = {}, {}
+
+    buf = io.StringIO()
+    reset_launches()
+    with ingest_split(split := {}), \
+            recording(slicing, "_compact_slice", []) as compactions:
+        res = bench_torch.run_bench("cuda", DEFAULT_CONFIG, BATCH, REPS,
+                                    out=buf)
+    launches = launch_counts()
+    ingest["bench"] = ingest_check("bench", split, smi, n_specs=1)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"bench_torch: {json.dumps(line)}; p50 {res['p50_ms']:.1f} ms, "
+        f"phase 6 p50 {phase6['p50_ms']:.1f} ms "
+        f"({min(phase6['batch_ms']):.1f}-{max(phase6['batch_ms']):.1f}); "
+        f"launches {res['launches']} (phase 6 {phase6['launches']}), "
+        f"synchronizing calls {res['syncs']} (phase 6 {phase6['syncs']}); "
+        f"(slice-stack, raw-loop, walk) launches {launches} over "
+        f"{res['runs']} batch runs ({smi})")
+    if not line["value"] > 0:
+        raise AssertionError(f"bench_torch: the sanity gate failed, means "
+                             f"{res['means']}")
+    if launches != (3 * res["runs"], res["runs"], 0) or compactions:
+        raise AssertionError(f"bench_torch: launches {launches} over "
+                             f"{res['runs']} runs, {len(compactions)} plain "
+                             f"compactions")
+    if (res["launches"], res["syncs"]) != (phase6["launches"],
+                                           phase6["syncs"]):
+        raise AssertionError("bench_torch: launches or synchronizing calls "
+                             "differ from phase 6's")
+    out["bench"] = dict(res, phase6_p50_ms=phase6["p50_ms"])
+    out["launches"] = {"bench": launches}
+
+    spec, _ = bench_torch.bench_bone()
+    bench_bones = B.stack_bones([spec] * BATCH, bones.verts.device)
+
+    def run(batch):
+        return lambda: B.compute_landmarks_batch(batch, rf, cfg=DEFAULT_CONFIG,
+                                                 seg_model=seg)
+
+    runs = {"phase 4": run(bones), "bench": run(bench_bones)}
+    turns = in_turns(runs)
+    busy_ms = load_tool("profile_torch_batch")._busy_ms
+    busy = {name: busy_ms(bench.count_launches(fn)["prof"])
+            for name, fn in runs.items()}
+    log(f"batch of {BATCH}, phase 4's bones / the bench's one bone x "
+        f"{BATCH}, in turns: "
+        + "; ".join(f"{name} median {np.median(ms):.1f} ms "
+                    f"({min(ms):.1f}-{max(ms):.1f}), device busy "
+                    f"{busy[name]:.1f} ms" for name, ms in turns.items())
+        + f" ({smi})")
+    out["bench"].update({"turns_ms": turns, "busy_ms": busy})
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as td, ingest_split(split := {}):
+        paths = [p for p in bench_cohort.cohort_bones(td, bones_dir="")
+                 for _ in range(16)]
+        rows, stats, wall = bench_cohort.run_cohort(paths, "cuda",
+                                                    DEFAULT_CONFIG, 8)
+    launches = launch_counts()
+    ingest["cohort"] = ingest_check("bench cohort", split, smi,
+                                    n_specs=2 * len(paths))
+    batches = 2 * (len(paths) // 8)
+    wrong = [r["name"] for r in rows
+             if r["side"] != r["name"].split("_")[1]]
+    log(f"bench_cohort_torch: {len(rows)} bones, warm pass {wall:.3f} s = "
+        f"{len(paths) / wall:.3f} bones/s with ingest; summary {stats}; "
+        f"(slice-stack, raw-loop, walk) launches {launches} over {batches} "
+        f"batches; sides wrong {wrong} ({smi})")
+    if len(rows) != 64 or wrong:
+        raise AssertionError(f"bench_cohort_torch: {len(rows)} rows, sides "
+                             f"wrong {wrong}")
+    if launches != (3 * batches, batches, 0):
+        raise AssertionError(f"bench_cohort_torch: launches {launches} over "
+                             f"{batches} batches")
+    out["cohort"] = {"bones": len(rows), "warm_s": wall,
+                     "bones_per_s": len(paths) / wall, "summary": stats}
+    out["launches"]["cohort"] = launches
+    out["ingest"] = ingest
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"bench phase: {out['total_s']:.1f} s in all ({smi})")
+    return out
 
 
 def mesh_phase(bones, lm, paths, cohort_res, smi):
@@ -2810,6 +2898,8 @@ def main(td):
     sections = mesh_train_sections_phase(bones, lm, smi)
     robust = robustness_phase(td, dev, rf, seg, acc, bones, lm, smi)
     ingest_res["robustness"] = robust.pop("ingest")
+    bench_res = bench_phase(full, bones, rf, seg, smi)
+    ingest_res["bench"] = bench_res.pop("ingest")
 
     print(json.dumps({"ingest": ingest_res,
                       "mesh_train_sections": sections, "accuracy": {
@@ -2818,6 +2908,7 @@ def main(td):
                 "ingest_s", "batch_s")}
         for name in ("healthy", "arthritic")}}))
     print(json.dumps({"robustness": robust}))
+    print(json.dumps({"bench": bench_res}))
 
     prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{
@@ -2835,7 +2926,10 @@ def main(td):
                                "mesh": mesh_res["launches"],
                                "robustness": {
                                    key: v[0] for key, v in
-                                   robust["launches"].items()}},
+                                   robust["launches"].items()},
+                               "bench": {
+                                   key: v[0] for key, v in
+                                   bench_res["launches"].items()}},
         "max_abs_err": max(w[key] for w in (worst, ct_worst, train_worst)
                            for key in ("contour_mm", "centroid_mm")),
         "max_area_err_mm2": max(w[key]
@@ -2892,7 +2986,10 @@ def main(td):
                                "mesh": mesh_res["raw_launches"],
                                "robustness": {
                                    key: v[1] for key, v in
-                                   robust["launches"].items()}},
+                                   robust["launches"].items()},
+                               "bench": {
+                                   key: v[1] for key, v in
+                                   bench_res["launches"].items()}},
         "max_abs_err": max(w[key] for w in (raw_worst, ct_raw_worst)
                            for key in ("points_mm", "centroid_mm")),
         "max_area_err_mm2": max(raw_worst["area_mm2"],

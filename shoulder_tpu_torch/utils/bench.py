@@ -1,0 +1,84 @@
+"""What one run of the main path costs the host: kernel launches and
+synchronizing calls, counted the same way by `bench_torch.py` and by
+`chip_smoke.py`'s timing phase.
+
+The profiler counts the launch API calls (cudaLaunchKernel and the
+others) but not the launches of the port's own kernels, which go through
+the kernel library, so their wrappers' counts are added.  Synchronizing
+calls are counted under `torch.cuda.set_sync_debug_mode("warn")` on the
+second of two watched runs: the first run so watched in a process counts
+one more.  Both need a CUDA device; keep them out of timed runs.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+import warnings
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    chain_walk.launch_count = 0
+    slicing.launch_count = 0
+    slicing.raw_launch_count = 0
+
+
+def launch_counts() -> tuple[int, int, int]:
+    """(slice-stack, raw-loop, standalone walk) launches since
+    reset_launches()."""
+    from shoulder_tpu_torch.ops import chain_walk, slicing
+
+    return (slicing.launch_count, slicing.raw_launch_count,
+            chain_walk.launch_count)
+
+
+def count_launches(run) -> dict:
+    """One profiled call of run(), waited for: the profiler's launch API
+    calls by name (`launch_api`), the port's own kernel launches
+    (`port_launches`), their sum (`launches`), the run's wall ms and the
+    profiler (`prof`, for device times)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    port0 = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    port = sum(launch_counts()) - sum(port0)
+    api = {e.key: e.count for e in prof.key_averages()
+           if "LaunchKernel" in e.key}
+    return {"launch_api": api, "port_launches": port,
+            "launches": sum(api.values()) + port, "wall_ms": wall_ms,
+            "prof": prof}
+
+
+def count_syncs(run) -> int:
+    """Synchronizing calls of run(), on the second of two runs under
+    set_sync_debug_mode("warn")."""
+    import torch
+
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def card() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]

@@ -81,9 +81,15 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "shoulder_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
+              ROOT / "bench_torch.py",
+              ROOT / "tools" / "bench_cohort_torch.py",
               ROOT / "tools" / "make_unet_corpus_torch.py",
               ROOT / "tools" / "train_unet_torch.py",
               ROOT / "tools" / "grad_noise_torch.py",
+              ROOT / "tools" / "profile_torch_batch.py",
+              ROOT / "tools" / "round_once_torch.py",
+              ROOT / "tools" / "arthritic_divergence_torch.py",
+              ROOT / "tools" / "eval_ct_poses_torch.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files
