@@ -187,8 +187,25 @@ Phases (any failure raises, so the exit code is non-zero):
      defaults (4 synthetic bones x 16 = 64, batch 8, a cold and a warm
      pass): 64 rows, each side its synthetic truth, 3 and 1 launches per
      batch.
+ 16. accuracy evidence, the port's twins of the JAX package's tools, on
+     in-memory bones: (a) tools/eval_articular_torch.py's healthy and
+     arthritic cohorts of 8 (seeds 11 and 13) at DEFAULT_CONFIG with the
+     UNet, 4 bones per eval batch, each batch exactly 2 slice-stack
+     launches (k 512, the JAX tool's slots) and 1 raw-loop launch, no
+     walk launch or plain compaction; each bone's row against its JAX
+     row in tools/eval_articular_rows_jax.json: the three IoUs within
+     0.01, the plane, neck-shaft and radius errors of both segmenters
+     within 0.75 deg / 0.75 deg / 0.75 mm (healthy) or ACC_ARTHRITIC_GATE
+     (arthritic), the constructed neck-shaft equal; the per-cohort
+     summaries printed beside the JAX ones; (b)
+     tools/eval_arthritic_ab_torch.py's cohort (default_rng(42), 8 bones,
+     the same draws as the JAX rows), both arms one batch each: each
+     arm's neck-shaft within 0.3 deg and qc_sphere_resid within 0.05 mm
+     of its JAX row; (c) tools/eval_accuracy_torch.py's cohorts, which
+     are phase 11's: its default arm bit for bit phase 11's landmarks and
+     its sphere arm phase 14b's, every field.
 
-Phases 4, 7-11, 14 and 15 ingest: in each, every bone takes one native
+Phases 4, 7-11 and 14-16 ingest: in each, every bone takes one native
 ingest where it comes from an STL or a soup, and one native OBB search,
 and the numpy oracle runs never; each prints its ingest split (ms per
 bone of the STL read and weld, the soup weld, the OBB, head detection
@@ -199,9 +216,9 @@ The bone STLs live in one temporary directory for the whole run.
 The last lines: a JSON object of the host ingest per phase (counts,
 ms per bone of each stage, the host's CPU, phase 4's native and numpy
 times of bone 0), phase 13's and phase 11's results, phase 14's results,
-phase 15's results, a JSON object describing each kernel (launches in
-the main path's run and per phase, disagreement with the plain version,
-times, bound), the card's name and power limit as nvidia-smi gives them,
+phase 15's results, phase 16's results, a JSON object describing each
+kernel (launches in the main path's run and per phase, disagreement with
+the plain version, times, bound), the card's name and power limit as nvidia-smi gives them,
 and {"ok": true, "device": {...}}.
 """
 
@@ -285,6 +302,14 @@ AB_MARGIN = dict(ns=1.5, rv=2.0, rad=0.75)
 PITCH_BOUNDS = {1.0: dict(rv=2.0, ns=1.0, rad=0.75),
                 1.5: dict(rv=4.5, ns=2.0, rad=0.75)}
 PITCH_ISO_HU = 300.0
+# phase 16: tools/eval_articular_torch.py's rows against the JAX
+# package's (tools/eval_articular_rows_jax.json): each IoU within
+# EVIDENCE_IOU, the plane, neck-shaft and radius errors of both segmenters
+# within ACC_GATE (healthy) or ACC_ARTHRITIC_GATE (arthritic), the
+# constructed neck-shaft equal; tools/eval_arthritic_ab_torch.py's arms:
+# neck-shaft (deg) and qc_sphere_resid (mm) within AB_ROW_GATE of theirs
+EVIDENCE_IOU = 0.01
+AB_ROW_GATE = (0.3, 0.05)
 # phase 14d: tests/test_arthritic_cohort.py's four variants (healthy first)
 ROBUST_VARIANTS = (
     dict(),
@@ -1704,42 +1729,17 @@ def train_phase(td, dev, rf, bone0, bone0_image, lm_bone0, smi, n_corpus=8,
 def accuracy_cohort(rng, arthritic, n=ACC_PER_COHORT):
     """tests/test_accuracy_gate.py's cohort of n BoneSpecs and truths from
     `rng` (healthy first, then arthritic, one stream), through the port's
-    spec_from_arrays; with n = AB_PER_COHORT and default_rng(77),
-    tests/test_segmenter_ab.py's."""
-    from shoulder_tpu_torch.io import ingest, stl
-    from shoulder_tpu_torch.io.testdata import synthetic_humerus
-
-    specs, truth, i = [], [], 0
-    while len(specs) < n:
-        i += 1
-        p = dict(
-            length=float(rng.uniform(250, 310)),
-            head_radius=float(rng.uniform(20, 27)),
-            neck_shaft_deg=float(rng.uniform(125.0, 145.0)),
-            retroversion_deg=float(rng.uniform(15.0, 40.0)),
-            side="left" if rng.random() < 0.5 else "right",
-        )
-        deg = dict(
-            head_flattening=float(rng.uniform(0.12, 0.3)),
-            osteophyte_amp=float(rng.uniform(0.5, 2.5)),
-            surface_noise=float(rng.uniform(0.2, 0.6)),
-        ) if arthritic else {}
-        v, f = synthetic_humerus(rng_transform=rng, **p, **deg)
-        nbr, wt = stl.edge_face_adjacency(f)
-        try:
-            spec = ingest.spec_from_arrays(
-                f"b{i}", v.astype(np.float32), f.astype(np.int32), nbr, wt)
-        except ValueError:
-            continue
-        specs.append(spec)
-        truth.append(p)
-    return specs, truth
+    spec_from_arrays: tools/eval_accuracy_torch.py's make_cohort, the twin
+    of tools/eval_accuracy.py's; with n = AB_PER_COHORT and
+    default_rng(77), tests/test_segmenter_ab.py's."""
+    return load_tool("eval_accuracy_torch").make_cohort(n, rng, arthritic)
 
 
 def accuracy_phase(dev, rf, seg2d, smi):
     """Phase 11: the accuracy cohorts on the card, against the truth, the
     accuracy gate's BOUNDS and the JAX package's committed rows.  Each
-    cohort's result keeps its BoneSpecs and truths for phase 14."""
+    cohort's result keeps its BoneSpecs and truths for phase 14 and its
+    landmarks (`lm`) for phase 16."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.pipeline import batch as B
 
@@ -1779,7 +1779,7 @@ def accuracy_phase(dev, rf, seg2d, smi):
                    "max_abs_vs_jax": np.abs(vs_jax).max(0).tolist(),
                    "vs_jax": vs_jax.tolist(), "ingest_s": ingest_s,
                    "batch_s": batch_s, "ingest": ingest, "specs": specs,
-                   "truth": truth}
+                   "truth": truth, "lm": lm}
         log(f"accuracy {name}: |error| max (ns, rv, radius) "
             f"{np.round(summary['max_abs_err'], 3)}, mean "
             f"{np.round(summary['mean_err'], 3)}, |port - JAX| max "
@@ -2026,7 +2026,9 @@ def rigid_leg(dev, rf, seg2d, smi, launches, ingest):
 
 def segmenter_leg(dev, rf, seg2d, acc, smi, launches, ingest):
     """Phase 14b: phase 11's cohorts (`acc`) under the sphere segmenter
-    against tools/eval_accuracy_sphere.json, then the A/B tripwire."""
+    against tools/eval_accuracy_sphere.json, then the A/B tripwire.  Each
+    cohort's sphere-arm landmarks are kept in acc[name]["sphere_lm"] for
+    phase 16."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.pipeline import batch as B
 
@@ -2040,6 +2042,7 @@ def segmenter_leg(dev, rf, seg2d, acc, smi, launches, ingest):
         reset_launches()
         lm = B.landmarks_to_numpy(landmark_batch(specs, dev, rf, sphere))
         one_batch(f"sphere {name}", launches)
+        acc[name]["sphere_lm"] = lm
         got = np.stack([lm.neckshaft, lm.retroversion, lm.radius_curvature],
                        1).astype(np.float64)
         want = np.array([[t["neck_shaft_deg"], t["retroversion_deg"],
@@ -2439,6 +2442,164 @@ def bench_phase(phase6, bones, rf, seg, smi):
     out["ingest"] = ingest
     out["total_s"] = time.perf_counter() - t_phase
     log(f"bench phase: {out['total_s']:.1f} s in all ({smi})")
+    return out
+
+
+def articular_leg(dev, rf, seg, smi, launches, ingest):
+    """Phase 16a: tools/eval_articular_torch.py's cohorts at
+    DEFAULT_CONFIG with the UNet, each eval batch exactly 2 slice-stack
+    and 1 raw-loop launches, every bone's row against its JAX row."""
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from shoulder_tpu_torch.ops import kernels, slicing
+
+    EA = load_tool("eval_articular_torch")
+    ref = tool_json("eval_articular_rows_jax.json")["articular"]
+    lib = kernels.library()
+    for name in ("full", "proximal"):
+        band = getattr(cfg, name).band
+        log(f"evidence articular: slice-stack shared memory, {name} stack "
+            f"at k {EA.COMPACT_K}: "
+            f"{lib.slice_stack_smem_bytes(band, min(band, EA.COMPACT_K))} B "
+            f"dynamic per block")
+    per_batch, eval_rows = [], EA.eval_rows
+
+    def counted(*args, **kwargs):
+        reset_launches()
+        out = eval_rows(*args, **kwargs)
+        per_batch.append(launch_counts())
+        return out
+
+    n = len(ref["healthy"]["rows"])
+    t0 = time.perf_counter()
+    with swapped(EA, "eval_rows", counted), ingest_split(split := {}), \
+            recording(slicing, "_compact_slice", []) as compactions:
+        res = EA.run_cohorts(n, dev, cfg, rf, seg)
+    secs = time.perf_counter() - t0
+    ingest["articular"] = ingest_check("evidence articular", split, smi,
+                                       n_specs=2 * n)
+    launches["articular"] = tuple(int(x) for x in np.sum(per_batch, 0))
+    log(f"evidence articular: (slice-stack, raw-loop, walk) launches per "
+        f"eval batch {per_batch}, {len(compactions)} plain compactions")
+    if any(c != (2, 1, 0) for c in per_batch) or compactions:
+        raise AssertionError("evidence articular: an eval batch is not 2 "
+                             "slice-stack and 1 raw-loop launches")
+    out = {"s": secs, "summary": EA.summarize(res),
+           "jax_summary": EA.summarize({
+               kind: {"rows": np.asarray(d["rows"], np.float32),
+                      "flattening": np.asarray(d["flattening"])}
+               for kind, d in ref.items()}),
+           "max_abs_vs_jax": {}}
+    for kind, (ga, gn, gr) in (("healthy", (ACC_GATE,) * 3),
+                               ("arthritic", ACC_ARTHRITIC_GATE)):
+        got = res[kind]["rows"].astype(np.float64)
+        want = np.asarray(ref[kind]["rows"], np.float64)
+        if not np.array_equal(res[kind]["flattening"],
+                              ref[kind]["flattening"]):
+            raise AssertionError(f"evidence articular {kind}: the cohort is "
+                                 f"not the rows' cohort")
+        diff = np.abs(got - want)
+        limits = np.array([EVIDENCE_IOU] * 3 + [ga] * 2 + [gn] * 2
+                          + [gr] * 2 + [0.0])
+        for i in range(len(got)):
+            log(f"evidence articular {kind} bone {i}: port "
+                f"{np.round(got[i], 4).tolist()}, port - JAX "
+                f"{np.round(got[i] - want[i], 4).tolist()}")
+        out["max_abs_vs_jax"][kind] = dict(zip(EA.COLS, diff.max(0)))
+        log(f"evidence articular {kind}: largest |port - JAX| per column "
+            + ", ".join(f"{c} {v:.4f}" for c, v in
+                        out["max_abs_vs_jax"][kind].items())
+            + f" (limits {limits.tolist()})")
+        ok = (diff <= limits) | (np.isnan(got) & np.isnan(want))
+        if not ok.all():
+            raise AssertionError(
+                f"evidence articular {kind}: bones {np.where(~ok)[0]} "
+                f"columns {np.where(~ok)[1]} beyond the gates")
+    for name, s in out["summary"].items():
+        j = out["jax_summary"][name]
+        log(f"evidence articular summary {name} (n={s['n']}), port / JAX: "
+            + ", ".join(f"{c} {s[c]:.3f} / {j[c]:.3f}" for c in EA.COLS))
+    log(f"evidence articular: {secs:.1f} s ({smi})")
+    return out
+
+
+def ab_leg(dev, rf, seg, smi, launches, ingest):
+    """Phase 16b: tools/eval_arthritic_ab_torch.py's cohort, both arms one
+    batch each, each bone's neck-shaft and qc_sphere_resid against its
+    JAX row."""
+    AB = load_tool("eval_arthritic_ab_torch")
+    ref = tool_json("eval_articular_rows_jax.json")["ab"]
+    t0 = time.perf_counter()
+    with ingest_split(split := {}):
+        specs, truth, draws = AB.make_cohort(len(ref))
+    ingest["ab"] = ingest_check("evidence A/B", split, smi)
+    if draws != [r["draw"] for r in ref]:
+        raise AssertionError(f"evidence A/B: draws {draws}, the JAX rows' "
+                             f"{[r['draw'] for r in ref]}")
+    reset_launches()
+    rows = AB.table(truth, draws, AB.run_arms(specs, dev, rf=rf,
+                                              seg_model=seg))
+    launches["ab"] = launch_counts()
+    if launches["ab"] != (6, 2, 0):
+        raise AssertionError(f"evidence A/B: launches {launches['ab']}, "
+                             f"expected (6, 2, 0) for two batches")
+    out = {"s": time.perf_counter() - t0, "max_abs_vs_jax": {}}
+    for arm in AB.ARMS:
+        d = np.array([[r[f"{arm}_ns"] - j[f"{arm}_ns"],
+                       r[f"{arm}_resid"] - j[f"{arm}_resid"]]
+                      for r, j in zip(rows, ref)])
+        out["max_abs_vs_jax"][arm] = np.abs(d).max(0).tolist()
+        log(f"evidence A/B {arm}: port - JAX per bone (neck-shaft deg, "
+            f"resid mm) {np.round(d, 4).tolist()}")
+        if not (np.abs(d) < AB_ROW_GATE).all():
+            raise AssertionError(f"evidence A/B {arm}: a bone lies beyond "
+                                 f"{AB_ROW_GATE} of its JAX row")
+    log(f"evidence A/B: |port - JAX| max {out['max_abs_vs_jax']}; "
+        f"{out['s']:.1f} s ({smi})")
+    return out
+
+
+def accuracy_tool_leg(dev, acc, smi, launches, ingest):
+    """Phase 16c: tools/eval_accuracy_torch.py's cohorts and both arms,
+    bit for bit phase 11's landmarks and phase 14b's (kept in `acc`)."""
+    EACC = load_tool("eval_accuracy_torch")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2026)
+    for name in ("healthy", "arthritic"):
+        with ingest_split(split := {}):
+            specs, truth = EACC.make_cohort(ACC_PER_COHORT, rng,
+                                            name == "arthritic")
+        ingest[f"accuracy {name}"] = ingest_check(
+            f"evidence accuracy {name}", split, smi)
+        for seg, key in ((None, "lm"), ("sphere", "sphere_lm")):
+            arm = seg or "default"
+            reset_launches()
+            lm = EACC.run_cohort(specs, dev, seg)
+            one_batch(f"accuracy {name} {arm}", launches)
+            EACC.table(f"{name} ({arm})", lm, truth)
+            differ = [field for field, a, b in zip(lm._fields, lm,
+                                                  acc[name][key])
+                      if not np.array_equal(a, b, equal_nan=True)]
+            if differ:
+                raise AssertionError(f"evidence accuracy {name} {arm}: "
+                                     f"{differ} differ from phase "
+                                     f"{11 if seg is None else '14b'}'s")
+    secs = time.perf_counter() - t0
+    log(f"evidence accuracy: both cohorts, both arms bit for bit phases 11 "
+        f"and 14b; {secs:.1f} s ({smi})")
+    return {"s": secs}
+
+
+def evidence_phase(dev, rf, seg, acc, smi):
+    """Phase 16: the port's accuracy-evidence tools on the card, each held
+    against the JAX package's rows or against phases 11 and 14b."""
+    t_phase = time.perf_counter()
+    launches, ingest = {}, {}
+    out = {"articular": articular_leg(dev, rf, seg, smi, launches, ingest),
+           "ab": ab_leg(dev, rf, seg, smi, launches, ingest),
+           "accuracy": accuracy_tool_leg(dev, acc, smi, launches, ingest),
+           "launches": launches, "ingest": ingest}
+    out["total_s"] = time.perf_counter() - t_phase
+    log(f"evidence phase: {out['total_s']:.1f} s in all ({smi})")
     return out
 
 
@@ -2900,6 +3061,8 @@ def main(td):
     ingest_res["robustness"] = robust.pop("ingest")
     bench_res = bench_phase(full, bones, rf, seg, smi)
     ingest_res["bench"] = bench_res.pop("ingest")
+    evidence = evidence_phase(dev, rf, seg, acc, smi)
+    ingest_res["evidence"] = evidence.pop("ingest")
 
     print(json.dumps({"ingest": ingest_res,
                       "mesh_train_sections": sections, "accuracy": {
@@ -2909,6 +3072,7 @@ def main(td):
         for name in ("healthy", "arthritic")}}))
     print(json.dumps({"robustness": robust}))
     print(json.dumps({"bench": bench_res}))
+    print(json.dumps({"evidence": evidence}))
 
     prox = per_stack["proximal"]
     print(json.dumps({"kernels": [{
@@ -2929,7 +3093,10 @@ def main(td):
                                    robust["launches"].items()},
                                "bench": {
                                    key: v[0] for key, v in
-                                   bench_res["launches"].items()}},
+                                   bench_res["launches"].items()},
+                               "evidence": {
+                                   key: v[0] for key, v in
+                                   evidence["launches"].items()}},
         "max_abs_err": max(w[key] for w in (worst, ct_worst, train_worst)
                            for key in ("contour_mm", "centroid_mm")),
         "max_area_err_mm2": max(w[key]
@@ -2989,7 +3156,10 @@ def main(td):
                                    robust["launches"].items()},
                                "bench": {
                                    key: v[1] for key, v in
-                                   bench_res["launches"].items()}},
+                                   bench_res["launches"].items()},
+                               "evidence": {
+                                   key: v[1] for key, v in
+                                   evidence["launches"].items()}},
         "max_abs_err": max(w[key] for w in (raw_worst, ct_raw_worst)
                            for key in ("points_mm", "centroid_mm")),
         "max_area_err_mm2": max(raw_worst["area_mm2"],

@@ -90,6 +90,10 @@ def test_port_imports_no_jax():
               ROOT / "tools" / "round_once_torch.py",
               ROOT / "tools" / "arthritic_divergence_torch.py",
               ROOT / "tools" / "eval_ct_poses_torch.py",
+              ROOT / "tools" / "eval_articular_torch.py",
+              ROOT / "tools" / "eval_arthritic_ab_torch.py",
+              ROOT / "tools" / "eval_accuracy_torch.py",
+              ROOT / "tools" / "refresh_evidence_torch.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files
