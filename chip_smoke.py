@@ -46,14 +46,19 @@ Phases (any failure raises, so the exit code is non-zero):
      alone), and each stage's time inside a block from the kernel's
      timed build;
  5b. raw-loop kernel vs plain: phase 4's batched launch equals its 8
-     bones' own launches bit for bit; on phase 4's 8 surgical-neck planes
-     (central, as the path calls it, and largest), bone 0's edge planes
-     (both selects) and the 8 planes at k 24 (every plane overflows) the
-     kernel against the plain composition on the card: n, overflow and
-     the loop equal (area within 0.01 mm^2, centroid within 1e-3 mm; the
-     planes whose loop differs counted, none allowed), points within
-     1e-5 mm (bit for bit expected: the largest difference printed);
-     kernel and plain times of phase 4's call and its bound;
+     bones' own launches bit for bit, and so does the same planes' launch
+     at the CT shape (band 6144, k 1024, max_chain 1024: a block of 1024
+     threads); on phase 4's 8 surgical-neck planes (central, as the path
+     calls it, and largest), bone 0's edge planes (both selects), both at
+     the main path's shape and at the CT shape, and the 8 planes at k 24
+     (every plane overflows) the kernel against the plain composition on
+     the card: n, overflow and the loop equal (area within 0.01 mm^2,
+     centroid within 1e-3 mm; the planes whose loop differs counted, none
+     allowed), points within 1e-5 mm (bit for bit expected: the largest
+     difference printed); kernel and plain times of phase 4's call and of
+     its planes at the CT shape, their bounds, and each stage's
+     microseconds inside a block from the kernel's timed build
+     (slicing.RAW_STAGES);
   6. timing: a batch of 1 and a batch of 8 at DEFAULT_CONFIG with the
      UNet, each profiled once (kernel launches: the profiler's
      cudaLaunchKernel and every launch API call, plus the port's own
@@ -97,7 +102,8 @@ Phases (any failure raises, so the exit code is non-zero):
      launch on the 4 CT planes (k 1024, band 6144, max_chain 1024) equal
      to its bones' own launches bit for bit and to the plain composition
      as in phase 5b; per-volume times with the UNet's and marching tets'
-     bounds, and the kernels' times at the CT sizes.
+     bounds, and the kernels' times at the CT sizes, the raw loop's with
+     its stages.
  10. training: a corpus of 8 random synthetic humeri by
      tools/make_unet_corpus_torch.build_corpus at DEFAULT_CONFIG on the
      card (exactly 2 slice-stack launches per extracted bone, no
@@ -166,10 +172,12 @@ Phases (any failure raises, so the exit code is non-zero):
      tripwire (default_rng(77), 4 bones per cohort, both arms): the UNet
      arm no worse than the sphere arm by AB_MARGIN on |max| error;
      (c) tests/test_ct_pitch_sweep.py's bone as its direct mesh and as a
-     1.0 and a 1.5 mm CT volume cut at 300 HU, segmented and meshed on the
-     card, a batch of 2 at tools/eval_ct_pitch.py's config (band 6144, k
-     1024): the same side, the deltas inside PITCH_BOUNDS and within 0.75
-     of the JAX rows in tools/eval_ct_pitch_results.json;
+     1.0, a 1.5 and a 2.0 mm CT volume cut at 300 HU, segmented and meshed
+     on the card, a batch of 2 each at tools/eval_ct_pitch.py's config
+     (band 6144, k 1024, so the raw loop's block of 1024 threads): the
+     side as the JAX row in tools/eval_ct_pitch_results.json calls it (the
+     same at 1.0 and 1.5 mm, wrong at 2.0), the deltas (neck_z's too)
+     within 0.75 of the row and, at 1.0 and 1.5 mm, inside PITCH_BOUNDS;
      (d) phase 4's batch and tests/test_arthritic_cohort.py's cohort
      (default_rng(7), tiny_config) under utils.nan_trap (every aten call's
      and kernel launch's floating-point outputs checked for NaN,
@@ -301,6 +309,9 @@ AB_MARGIN = dict(ns=1.5, rv=2.0, rad=0.75)
 # deltas per pitch (mm), and bench.py's gate against the JAX rows
 PITCH_BOUNDS = {1.0: dict(rv=2.0, ns=1.0, rad=0.75),
                 1.5: dict(rv=4.5, ns=2.0, rad=0.75)}
+# tools/eval_ct_pitch.py's default pitches; 2.0 mm has no envelope (the
+# JAX row calls the side wrong there) and is held to its row alone
+PITCHES = (1.0, 1.5, 2.0)
 PITCH_ISO_HU = 300.0
 # phase 16: tools/eval_articular_torch.py's rows against the JAX
 # package's (tools/eval_articular_rows_jax.json): each IoU within
@@ -1002,7 +1013,9 @@ def time_stack(name, args, smi, plain_too=True):
         f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} "
         f"({n_bytes} B), {100 * res['bound_ms'] / res['ms']:.3g} % of it "
         f"({smi})")
-    res.update(stage_breakdown(a))
+    res.update(stage_breakdown(
+        lambda stamps: slicing.slice_stack_kernel(*a, stamps=stamps),
+        a[1], slicing.STAGES))
     log(f"slice-stack stages, {name} stack, timed build "
         f"{res['timed_ms']:.4f} ms, SM clock {res['sm_ghz']:.3f} GHz, "
         f"block {res['block_us_median']:.2f} us (median); per stage, "
@@ -1045,23 +1058,40 @@ def slice_kernel_phase(main_stacks, bone0_stacks, smi):
     return worst, per_stack, per_stack_bone0
 
 
-def stage_breakdown(args):
-    """Each stage's time inside a block, from the kernel's timed build
+def stage_breakdown(launch, zs, stages):
+    """Each stage's time inside a block, from a kernel's timed build
     (clock64 at every stage boundary, converted by the blocks' own
-    %globaltimer), and the timed build's ms, which against the kernel's
-    shows what the stamps cost."""
+    %globaltimer): `launch(stamps)` launches it over the planes `zs`, a
+    block each, with `stages` (slicing.STAGES or RAW_STAGES).  The medians and means over
+    the blocks of the last of 50 timed launches, the block total, the SM
+    clock and the timed build's ms, which against the kernel's shows what
+    the stamps cost."""
     from shoulder_tpu_torch.ops import slicing
 
-    stamps = torch.zeros((args[1].numel(), 12), dtype=torch.int64,
-                         device=args[1].device)
-    timed_ms = timed_cuda(
-        lambda: slicing.slice_stack_kernel(*args, stamps=stamps), 50)
+    stamps = torch.zeros((zs.numel(), len(stages) + 3), dtype=torch.int64,
+                         device=zs.device)
+    timed_ms = timed_cuda(lambda: launch(stamps), 50)
     us, ghz = slicing.stage_times(stamps)
     return {"timed_ms": timed_ms, "sm_ghz": ghz,
             "block_us_median": float(us.sum(1).median()),
-            "stage_us_median": dict(zip(slicing.STAGES,
-                                        us.median(0).values.tolist())),
-            "stage_us_mean": dict(zip(slicing.STAGES, us.mean(0).tolist()))}
+            "stage_us_median": dict(zip(stages, us.median(0).values.tolist())),
+            "stage_us_mean": dict(zip(stages, us.mean(0).tolist()))}
+
+
+def raw_stage_breakdown(name, args, smi, lib=None):
+    """stage_breakdown of the raw-loop kernel on `args`, logged; `lib`:
+    another build of the kernel (measurement only)."""
+    from shoulder_tpu_torch.ops import slicing
+
+    out = stage_breakdown(
+        lambda stamps: slicing.slice_raw_kernel(*args, stamps=stamps,
+                                                lib=lib),
+        args[1], slicing.RAW_STAGES)
+    log(f"raw-loop stages, {name}: block {out['block_us_median']:.2f} us at "
+        f"{out['sm_ghz']:.3f} GHz (timed build {out['timed_ms']:.4f} ms): "
+        + ", ".join(f"{key} {v:.2f}" for key, v in
+                    out["stage_us_median"].items()) + f" us ({smi})")
+    return out
 
 
 def raw_work(sg, z, band, k, max_chain):
@@ -1184,9 +1214,10 @@ def time_raw(name, args, smi):
 
 def raw_loop_phase(main_raw, bone0_raw, smi):
     """Phase 5b: the raw-loop kernel against its plain version on the card
-    (the main path's planes with both selects, bone 0's edge planes, k 24)
-    and the batched launch against its bones' own launches; kernel and
-    plain timed on the main path's call."""
+    (the main path's planes with both selects, bone 0's edge planes, the
+    same planes at the CT shape, k 24) and the batched launch against its
+    bones' own launches, at both shapes; kernel and plain timed, and each
+    stage inside a block, on the main path's call and at the CT shape."""
     from shoulder_tpu_torch.ops import slicing
 
     args, out = main_raw
@@ -1200,19 +1231,37 @@ def raw_loop_phase(main_raw, bone0_raw, smi):
     sge = slicing.SortedGeom(*(x[None].expand((edge.shape[0],) + x.shape)
                                .contiguous() for x in sg0))
     band0 = bone0_raw[0][2]
+    # the CT sizes (phase 9's ct_config: band 6144, k 1024, max_chain 1024)
+    # on the same planes: the kernel's block of 1024 threads
+    ct_band = min(6144, sg.z_key.shape[-1])
+    ct_args = (sg, z, ct_band, 1024, select, min(1024, ct_band))
+    ct_name = "batch neck planes at the CT shape"
+    ct_out = slicing.slice_raw_kernel(*ct_args)
+    raw_per_bone(ct_name, ct_args, ct_out)
+    log(f"raw loop: the batched launch at the CT shape equals its "
+        f"{n_bones} per-bone launches bit for bit")
     cases = [("batch neck planes", args, out),
              ("batch neck planes", (sg, z, band, max_chain, other, k), None),
              ("bone 0 edge planes", (sge, edge, band0, max_chain, select, k),
               None),
              ("bone 0 edge planes", (sge, edge, band0, max_chain, other, k),
               None),
+             (ct_name, ct_args, ct_out),
+             (ct_name, ct_args[:4] + (other, ct_args[5]), None),
+             ("bone 0 edge planes at the CT shape",
+              (sge, edge, min(6144, sge.z_key.shape[-1]), 1024, select,
+               min(1024, ct_band)), None),
              ("batch neck planes, k 24", (sg, z, band, max_chain, select,
                                           min(24, band)), None)]
     worst, last = check_raw(cases)
     if last["overflow_planes"] != z.shape[0]:
         raise AssertionError("k = 24 did not overflow every plane")
     log(f"raw-loop kernel vs plain, all {len(cases)} calls: {worst}")
-    return worst, time_raw("batch neck planes", args, smi)
+    res = time_raw("batch neck planes", args, smi)
+    res["stages"] = raw_stage_breakdown("batch neck planes", args, smi)
+    res["ct_shape"] = time_raw(ct_name, ct_args, smi)
+    res["ct_shape"]["stages"] = raw_stage_breakdown(ct_name, ct_args, smi)
+    return worst, res
 
 
 def ct_config():
@@ -1435,6 +1484,7 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
     raw_per_bone("ct neck planes", raw_args, raw_out)
     raw_worst, _ = check_raw([("ct neck planes", raw_args, raw_out)])
     raw_time = time_raw("ct neck planes", raw_args, smi)
+    raw_time["stages"] = raw_stage_breakdown("ct neck planes", raw_args, smi)
     total_s = time.perf_counter() - t_phase
     log(f"ct phase: {total_s:.1f} s in all ({smi})")
     ingest = {key: float(np.mean([row["ingest_ms"][key] for row in
@@ -1925,13 +1975,13 @@ def pitch_ct_spec(pitch, cfg, device):
                              max_tris=CT_MAX_TRIS, device=device)
 
 
-def pitch_deltas(lm):
-    """CT bone (1) minus direct mesh (0) of a batch's landmarks (numpy),
+def pitch_deltas(lm, i=1):
+    """CT bone i minus direct mesh (0) of a batch's landmarks (numpy),
     keyed as tools/eval_ct_pitch_results.json's rows."""
-    return {f"d_{key}": float(getattr(lm, name)[1]) - float(
+    return {f"d_{key}": float(getattr(lm, name)[i]) - float(
         getattr(lm, name)[0]) for key, name in (
-            ("rv", "retroversion"), ("ns", "neckshaft"),
-            ("rad", "radius_curvature"))}
+            ("ns", "neckshaft"), ("rv", "retroversion"),
+            ("rad", "radius_curvature"), ("neck_z", "neck_z"))}
 
 
 def pitch_row(pitch):
@@ -2111,19 +2161,21 @@ def segmenter_leg(dev, rf, seg2d, acc, smi, launches, ingest):
 
 def ct_pitch_leg(dev, rf, smi, launches, ingest):
     """Phase 14c: the pitch sweep's bone as its direct mesh and as a CT
-    volume at each of PITCH_BOUNDS' pitches, segmented and meshed on the
-    card, against the bounds and the JAX rows."""
+    volume at each of PITCHES, segmented and meshed on the card, against
+    the bounds (where PITCH_BOUNDS has them) and the JAX rows, the side as
+    the row calls it."""
     from shoulder_tpu_torch.pipeline import batch as B
 
     t0 = time.perf_counter()
     cfg = pitch_config()
     with ingest_split(split := {}):
         mesh = pitch_mesh_spec(cfg)
-        cts = {pitch: pitch_ct_spec(pitch, cfg, dev) for pitch in PITCH_BOUNDS}
+        cts = {pitch: pitch_ct_spec(pitch, cfg, dev) for pitch in PITCHES}
     ingest["ct_pitch"] = ingest_check("robustness ct pitch", split, smi,
-                                      n_specs=1 + len(PITCH_BOUNDS))
+                                      n_specs=1 + len(PITCHES))
     out = {}
-    for pitch, bnd in PITCH_BOUNDS.items():
+    for pitch in PITCHES:
+        bnd = PITCH_BOUNDS.get(pitch, {})
         reset_launches()
         lm = B.landmarks_to_numpy(landmark_batch([mesh, cts[pitch]], dev, rf,
                                                  cfg))
@@ -2131,16 +2183,20 @@ def ct_pitch_leg(dev, rf, smi, launches, ingest):
         d, row = pitch_deltas(lm), pitch_row(pitch)
         same_side = bool(lm.side_is_left[0] == lm.side_is_left[1])
         out[pitch] = {"deltas": d, "jax_row": {key: row[key] for key in d},
-                      "faces": cts[pitch].n_faces, "same_side": same_side}
+                      "faces": cts[pitch].n_faces, "same_side": same_side,
+                      "jax_side_ok": row["side_ok"]}
         log(f"robustness ct {pitch} mm ({cts[pitch].n_faces} faces): "
             + ", ".join(f"{key} {d[key]:+.5f} (JAX {row[key]:+.5f})"
                         for key in d)
-            + f"; bounds {bnd}, same side {same_side}")
-        if not (same_side and not lm.qc_slice_overflow.any()
+            + f"; bounds {bnd or 'none'}, same side {same_side} (JAX "
+            f"{row['side_ok']})")
+        if not (same_side == row["side_ok"]
+                and not lm.qc_slice_overflow.any()
                 and all(abs(d[f"d_{key}"]) < b for key, b in bnd.items())
                 and all(abs(d[key] - row[key]) < ACC_GATE for key in d)):
             raise AssertionError(f"robustness ct {pitch} mm: outside the "
-                                 f"bounds or {ACC_GATE} from the JAX row")
+                                 f"bounds, {ACC_GATE} from the JAX row or "
+                                 f"the side not as the row calls it")
     out["s"] = time.perf_counter() - t0
     log(f"robustness ct pitches: {out['s']:.1f} s ({smi})")
     return out

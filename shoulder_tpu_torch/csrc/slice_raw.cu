@@ -9,13 +9,12 @@
 // smallest original face id, and the loop's order by pointer-jumping ranks
 // (_order_loop).  In the JAX package that is XLA code
 // (shoulder_tpu/ops/slicing.py:937-983, slice_raw_banded), not a Pallas
-// kernel.  Stages 1-4 are slice_stack.cu's stages 1-4, copied so that the
-// fused kernel's register budget stays as ptxas gives it.
+// kernel.
 //
 // Contract, for B bones of F faces each (SortedGeom stacked on a leading
 // bone dim) and one plane z per bone: window `band` (<= F), `k` compact
-// slots (<= band), `max_chain` output points, `select` 0 = largest, 1 =
-// central.
+// slots (<= band, <= 2048), `max_chain` output points, `select` 0 =
+// largest, 1 = central.
 //   in   fvt (B, F, 9) f32, ids (B, F, 4) i32, z_mm (B, F, 2) f32,
 //        z_key (B, F) f32, cummax_z_max (B, F) f32, z (B,) f32
 //   out  points (B, max_chain, 2) f32, n (B,) i64, area (B,) f32,
@@ -23,73 +22,129 @@
 //        than k faces crossed)
 // Block b reads only bone b's faces and writes only row b, and nothing in
 // it depends on the order in which threads or blocks run (no float
-// atomics), so a batched launch equals the bones' own launches bit for bit.
+// atomics; the per-label sums are exact integer sums), so a batched launch
+// equals the bones' own launches bit for bit.
 //
 // The plain version's rounds are followed literally, because the chains
 // that an overflow or an open edge cuts give ranks that run past the
 // loop's count and wrap (the JAX package's scatter, mode "drop"): a list
 // ranking of the loop alone would place those points elsewhere.
+//   1. window: searchsorted of z in z_key by rounds of one key per thread
+//      at a stride, each counted by one __syncthreads_count, the last one
+//      over at most one key per thread;
+//   2. compaction: each lane issues up to kLoadGroup z_mm loads of the
+//      window before it tests any, then the warps' ballots slot the
+//      crossed faces in window order (one scan of the warps' counts);
+//   3. segments: one thread per slot gathers its fvt/ids row, computes the
+//      entry and exit points and the successor slot through the inverse
+//      map window position -> slot, and the block's largest |term| of each
+//      kind the sums of 6 take (a warp max, then one integer atomicMax);
+//   4. injectivity: the smallest-slot predecessor keeps each successor
+//      (shared atomicMin on integers);
 //   5. labels: lab = crossed ? slot : k, ptr = succ; _iters_for(k) rounds
-//      of lab = min(lab, crossed ? lab[ptr] : lab), ptr = ptr[ptr], on
-//      integers in two shared buffers each (one barrier a round);
-//   6. per-label sums in a fixed order: a stable counting sort of the
-//      crossed slots by label (integer atomicAdd counts, one block scan
-//      for the offsets, then one warp places 32 slots at a time in slot
-//      order with __match_any_sync), then a segmented block scan over the
-//      sorted slots (warp shuffles, the warps' carries in warp order);
-//      a segment's last slot holds its label's sums;
+//      of lab = min(lab, crossed ? lab[ptr] : lab), ptr = ptr[ptr]; each
+//      thread keeps its slots' lab and ptr in registers and publishes them
+//      as one 8-byte word into the other of two shared buffers (one
+//      barrier a round);
+//   6. per label, in one pass: the count, the smallest original face id,
+//      and the five sums (cross, (x_s + x_e) cross, (y_s + y_e) cross,
+//      x_s, y_s), each exact: a term times 2^e rounded once to an integer,
+//      e chosen from the block's largest term of its kind so that any sum
+//      of k terms stays within 2^39, summed as integers.  A warp's slots
+//      of one label meet by __match_any_sync and reduce by
+//      __reduce_add_sync / __reduce_min_sync (a term + 2^39 in two 21-bit
+//      limbs), then the label's first lane adds them with 32-bit shared
+//      atomics.  Integer sums do not depend on the order of the adds, so
+//      the result is fixed without a sort;
 //   7. pick: largest = the first label of the largest area over every
 //      label below k (an empty label's area is 0); central = the first
 //      label of the smallest |mean x| + |mean y| over labels of at least 3
 //      faces, label 0 where there is none (the plain argmin over +inf);
-//   8. the loop's smallest original face id (integer atomicMin) marks its
-//      start faces;
+//      a block argmax of two warp reductions a level;
+//   8. the picked label's smallest original face id marks its start faces;
+//      its area and centroid are its sums of 6;
 //   9. ranks: ptr = start ? slot : succ, rnk = start ? 0 : 1;
-//      _iters_for(k) rounds of rnk += rnk[ptr], ptr = ptr[ptr]; a member's
-//      position is 0 at a start face, else n - rnk, wrapped once by
-//      +max_chain where negative and dropped outside [0, max_chain); where
-//      positions collide the largest slot wins (the plain version's
-//      scatter_reduce amax); every other point is 0.
+//      _iters_for(k) rounds of rnk += rnk[ptr], ptr = ptr[ptr], (rnk, ptr)
+//      words as in 5; a member's position is 0 at a start face, else
+//      n - rnk, wrapped once by +max_chain where negative and dropped
+//      outside [0, max_chain); where positions collide the largest slot
+//      wins (the plain version's scatter_reduce amax); every other point
+//      is 0.
 //
 // What bounds it on this card.  The bytes are few (the z window, k
 // gathered face rows, max_chain x 8 B out per bone) and a batch is B
-// blocks, 8 on the main path: the launch is latency, a chain of short
-// stages each ending in a barrier, about 2 log2 k + 20 of them.  The design
-// keeps everything between the stages in shared memory and gives every
-// stage to the whole block; the only serial stretch is the placement of
-// the counting sort, k / 32 steps of one warp.
+// blocks, 8 on the main path: the launch is latency.  The timed build
+// (slice_raw_launch_timed, ops/slicing.py RAW_STAGES) showed where the
+// first design's 12.8 us block went on an H100 (k 512): z_mm loads that
+// waited for each other in the compaction, 2-4 trips of 256 threads in
+// every round of labels, segments and ranks, and a counting sort placed by
+// one warp with its segmented scan (3.2 us).  So this design gives each
+// slot its own thread (512 threads for k <= 512, 1024 above, two slots per
+// thread above 1024), issues a lane's window loads together, keeps each
+// slot's round state in registers, and replaces the sort, the scan and the
+// pass over the picked loop by one pass of exact integer sums per label.
+// Tried and not kept (PERF.md, section 6): 64-bit shared atomics for the
+// sums (compare-and-swap loops that the warps queue on, 1.2 us a pass), the
+// window staged by cp.async behind the search's last count (the stage is
+// issue-bound, not load-bound: 0.15 us slower), and 256 threads of two
+// slots at k 512 (12 % slower).  At k 512 the block takes 7.2 us against
+// the first design's 12.8 (H100, 700 W): window 1.1, compaction 1.0,
+// labels 1.0, counts 1.0, segments 0.85, ranks 0.83, pick 0.66.  What is
+// left is a chain of dependent global round trips (2 window rounds, the
+// window, the face rows) and about 2 log2 k + 8 block barriers, each met
+// by 16 or 32 warps, whose instructions the SM's four schedulers issue
+// in turn.
 //
 // Numerics.  Built with -fmad=false (ops/kernels.py).  Points are the
 // segment starts, computed by the plain version's elementwise expressions,
-// so they come out bit for bit.  The per-label sums run in another order
-// than the plain version's masked reductions, so area, centroid and the
-// central pick's mean points agree to rounding; a near-tie between two
-// loops' scores could pick another loop (chip_smoke.py counts such planes).
+// so they come out bit for bit.  Each per-label sum is the exact sum of
+// its terms rounded to multiples of 2^-e, then rounded once to float:
+// area, centroid and the central pick's mean points agree with the plain
+// version's float sums to rounding; a near-tie between two loops' scores
+// could pick another loop (chip_smoke.py counts such planes).
 //
-// Shared memory per block: 60 k + 4 max_chain + 2 band + 4 bytes dynamic,
-// 43,012 B at k 512 / band 2048 / max_chain 2048, 77,828 B at the CT sizes
-// (k 1024, band 6144, max_chain 1024); above 48 KB the launch opts in.
+// Shared memory per block: 84 k + 4 max_chain + 2 band + 4 bytes dynamic,
+// 55,300 B at k 512 / band 2048 / max_chain 2048, 102,404 B at the CT
+// sizes (k 1024, band 6144, max_chain 1024); above 48 KB the launch opts
+// in, once per device and kernel for the largest size it has met.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSearchKeys = 8;  // slice_stack.cu's window search
-constexpr int kMaxRun = 64;     // slice_stack.cu's compaction runs
-constexpr int kSums = 5;        // per label: cross, x cross, y cross, x, y
+constexpr int kMaxRun = 64;     // window positions a lane tests: bits of a u64
+constexpr int kLoadGroup = 8;   // z_mm loads a lane issues before testing any
+constexpr int kMaxSlots = 2;    // slots per thread: k <= 2 * threads
+constexpr int kMaxDevices = 64;
+constexpr int kKinds = 5;       // per-label sums: cross, x cross, y cross, x, y
+constexpr int kFixedBits = 39;  // a label's fixed-point sum stays within 2^39
+// The timed build records, per block, clock64() at the start and after
+// each of the 11 stages (ops/slicing.py RAW_STAGES: the nine above, the
+// sixth in its two halves, counts and sums, and the output write), then
+// %globaltimer (ns) at the start and the end, so that cycles convert to
+// time.
+constexpr int kStages = 11;
+constexpr int kStamps = kStages + 3;
+
+// The block for k slots: a thread per slot up to kNarrowK, else 1024
+// threads of up to kMaxSlots.
+constexpr int kNarrowK = 512;
+__host__ __device__ constexpr int slots_for(int threads) {
+  return threads > kNarrowK ? kMaxSlots : 1;
+}
 
 size_t smem_bytes(int band, int k, int max_chain) {
   const size_t kk = static_cast<size_t>(k);
-  return sizeof(float2) * 2 * kk                 // st, en
-         + sizeof(float) * 3 * kk                // per-label area, cx, cy
-         + sizeof(int32_t) * (8 * kk + 1)        // pos / sorted, orig, work,
-                                                 // cnt (k + 1), lab x2, ptr x2
+  return sizeof(float2) * 2 * kk                  // st, en
+         + sizeof(uint32_t) * 2 * kKinds * kk     // acc
+         + sizeof(int32_t) * 6 * kk               // pair x2, pos, morig
+         + sizeof(int32_t) * (kk + 1)             // cnt
          + sizeof(int32_t) * static_cast<size_t>(max_chain)  // owner
          + sizeof(int16_t) * static_cast<size_t>(band);      // inverse map
 }
@@ -97,16 +152,14 @@ size_t smem_bytes(int band, int k, int max_chain) {
 struct Smem {
   float2* st;       // [k] segment start per slot
   float2* en;       // [k] segment end per slot
-  float* l_area;    // [k] per label: sum of cross terms
-  float* l_cx;      // [k]   (x_s + x_e) * cross
-  float* l_cy;      // [k]   (y_s + y_e) * cross
-  int32_t* pos;     // [k] window position per slot; then the sorted slots
-  int32_t* orig;    // [k] original face id per slot
-  int32_t* work;    // [k] successor slot (self where none)
+  uint32_t* acc;    // [kKinds][2][k] per label and kind: the two limbs'
+                    //     sums of its fixed-point terms + 2^39
+  int32_t* pos;     // [k] window position per slot (stages 2-3)
+  int2* pair[2];    // [k] (label, pointer) per slot, two buffers; then
+                    //     (rank, pointer)
+  int32_t* morig;   // [k] smallest original face id per label
   int32_t* cnt;     // [k + 1] smallest predecessor (stage 4); then the
                     //     count of each label
-  int32_t* lab[2];  // [k] labels, two buffers; then ranks
-  int32_t* ptr[2];  // [k] pointers, two buffers; then label offsets
   int32_t* owner;   // [max_chain] slot placed at each output position
   int16_t* inv;     // [band] window position -> slot, -1 for none
 };
@@ -115,17 +168,14 @@ __device__ Smem carve(unsigned char* p, int k, int max_chain) {
   Smem s;
   s.st = reinterpret_cast<float2*>(p);       p += sizeof(float2) * k;
   s.en = reinterpret_cast<float2*>(p);       p += sizeof(float2) * k;
-  s.l_area = reinterpret_cast<float*>(p);    p += sizeof(float) * k;
-  s.l_cx = reinterpret_cast<float*>(p);      p += sizeof(float) * k;
-  s.l_cy = reinterpret_cast<float*>(p);      p += sizeof(float) * k;
-  s.pos = reinterpret_cast<int32_t*>(p);     p += sizeof(int32_t) * k;
-  s.orig = reinterpret_cast<int32_t*>(p);    p += sizeof(int32_t) * k;
-  s.work = reinterpret_cast<int32_t*>(p);    p += sizeof(int32_t) * k;
-  s.cnt = reinterpret_cast<int32_t*>(p);     p += sizeof(int32_t) * (k + 1);
+  s.acc = reinterpret_cast<uint32_t*>(p);
+  p += sizeof(uint32_t) * 2 * kKinds * k;
   for (int i = 0; i < 2; ++i) {
-    s.lab[i] = reinterpret_cast<int32_t*>(p);  p += sizeof(int32_t) * k;
-    s.ptr[i] = reinterpret_cast<int32_t*>(p);  p += sizeof(int32_t) * k;
+    s.pair[i] = reinterpret_cast<int2*>(p);    p += sizeof(int2) * k;
   }
+  s.pos = reinterpret_cast<int32_t*>(p);     p += sizeof(int32_t) * k;
+  s.morig = reinterpret_cast<int32_t*>(p);   p += sizeof(int32_t) * k;
+  s.cnt = reinterpret_cast<int32_t*>(p);     p += sizeof(int32_t) * (k + 1);
   s.owner = reinterpret_cast<int32_t*>(p);   p += sizeof(int32_t) * max_chain;
   s.inv = reinterpret_cast<int16_t*>(p);
   return s;
@@ -138,101 +188,81 @@ __host__ __device__ int iters_for(int k) {
   return r < 1 ? 1 : r;
 }
 
-// Block-wide (value, index) argmax: the largest value, the smallest index
-// among equal values (slice_stack.cu's).  Every thread gets the result.
-__device__ void block_argmax(float& val, int& idx, float* wval, int* widx) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_down_sync(kFull, val, o);
-    const int oi = __shfl_down_sync(kFull, idx, o);
-    if (ov > val || (ov == val && oi < idx)) {
-      val = ov;
-      idx = oi;
-    }
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+// Fixed-point exponent of sums of at most k terms whose largest magnitude
+// has the float bits `max_bits`: every term times 2^e is within
+// 2^kFixedBits / k in magnitude, so every such sum stays within
+// 2^kFixedBits.
+__device__ __forceinline__ int fixed_exp(unsigned max_bits, int k) {
+  // frexpf's exponent from the bits: max < 2^ex; a subnormal's from its
+  // mantissa's length; 0 gives 0
+  const int field = static_cast<int>(max_bits >> 23);
+  const int ex = field ? field - 126
+                       : (max_bits ? 32 - __clz(max_bits) - 149 : 0);
+  const int log2k = k < 2 ? 0 : 32 - __clz(k - 1);
+  return kFixedBits - ex - log2k;
+}
+
+// 2^n as a float, n in [-126, 127].
+__device__ __forceinline__ float exp2i(int n) {
+  return __int_as_float((n + 127) << 23);
+}
+
+// v * 2^e (two exact power-of-two factors: e spans more than one float
+// exponent), rounded once to the nearest integer, ties to even.
+__device__ __forceinline__ long long to_fixed(float v, int e) {
+  return __float2ll_rn(v * exp2i(e >> 1) * exp2i(e - (e >> 1)));
+}
+
+// A label's sum of kind c from its limbs and count: rounded once to float
+// and scaled back by 2^-e.
+__device__ __forceinline__ float label_sum(const uint32_t* acc, int c, int l,
+                                           int k, int count, int e) {
+  const long long s = static_cast<long long>(acc[(2 * c) * k + l]) +
+                      (static_cast<long long>(acc[(2 * c + 1) * k + l]) << 21) -
+                      (static_cast<long long>(count) << kFixedBits);
+  return __ll2float_rn(s) * exp2i(-(e >> 1)) * exp2i((e >> 1) - e);
+}
+
+// A segment's term of kind c: cross, (x_s + x_e) cross, (y_s + y_e)
+// cross, x_s, y_s (the plain version's expressions).
+__device__ __forceinline__ float seg_term(float2 s, float2 e, int c) {
+  const float cr2 = s.x * e.y - e.x * s.y;
+  switch (c) {
+    case 0: return cr2;
+    case 1: return (s.x + e.x) * cr2;
+    case 2: return (s.y + e.y) * cr2;
+    case 3: return s.x;
+    default: return s.y;
   }
+}
+
+// Block-wide argmax: the index of the largest value, the smallest index
+// among equal values (-0.0 counts as 0.0).  A value becomes its
+// order-preserving bits, so each level is two warp reductions; every
+// thread gets the index.  One barrier.
+template <int kThreads>
+__device__ int block_argmax(float val, int idx, unsigned* wkey, int* widx) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned b = __float_as_uint(val == 0.0f ? 0.0f : val);
+  unsigned key = b & 0x80000000u ? ~b : b | 0x80000000u;
+  unsigned top = __reduce_max_sync(kFull, key);
+  int at = __reduce_min_sync(kFull, key == top ? idx : INT_MAX);
   if (lane == 0) {
-    wval[warp] = val;
-    widx[warp] = idx;
+    wkey[warp] = top;
+    widx[warp] = at;
   }
   __syncthreads();
-  val = wval[0];
-  idx = widx[0];
-  for (int w = 1; w < kWarps; ++w) {
-    if (wval[w] > val || (wval[w] == val && widx[w] < idx)) {
-      val = wval[w];
-      idx = widx[w];
-    }
-  }
-  __syncthreads();
-}
-
-// Inclusive segmented sums of kSums values per thread over the block, in
-// thread order after `carry` (the running sums of the segment open at the
-// end of the previous chunk): `head` starts a new segment.  Lanes combine
-// by Hillis-Steele shuffles, then each thread folds in the carry and the
-// warps before its own, in warp order, so the order of every sum is fixed.
-// Updates carry to the chunk's end.  All threads must call it.
-__device__ void block_seg_scan(float (&v)[kSums], bool head,
-                               float (&carry)[kSums],
-                               float (*wsum)[kWarps], int* whead) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int f = head;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up_f = __shfl_up_sync(kFull, f, o);
-    for (int c = 0; c < kSums; ++c) {
-      const float up = __shfl_up_sync(kFull, v[c], o);
-      if (lane >= o && !f) v[c] = up + v[c];
-    }
-    if (lane >= o) f |= up_f;
-  }
-  if (lane == 31) {
-    for (int c = 0; c < kSums; ++c) wsum[c][warp] = v[c];
-    whead[warp] = f;
-  }
-  __syncthreads();
-  float run[kSums];
-  for (int c = 0; c < kSums; ++c) run[c] = carry[c];
-  for (int w = 0; w < kWarps; ++w) {
-    if (w == warp && !f) {
-      for (int c = 0; c < kSums; ++c) v[c] = run[c] + v[c];
-    }
-    for (int c = 0; c < kSums; ++c) {
-      run[c] = whead[w] ? wsum[c][w] : run[c] + wsum[c][w];
-    }
-  }
-  for (int c = 0; c < kSums; ++c) carry[c] = run[c];
-  __syncthreads();
-}
-
-// Exclusive prefix sums of cnt[0, n) into out[0, n), in place allowed;
-// each thread takes a run of consecutive entries.  Returns the total in
-// every thread.  All threads must call it.
-__device__ int block_exclusive_scan(const int32_t* cnt, int32_t* out, int n,
-                                    int* wint) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (n + kThreads - 1) / kThreads;
-  const int i0 = min(tid * per, n), i1 = min(i0 + per, n);
-  int run = 0;
-  for (int i = i0; i < i1; ++i) run += cnt[i];
-  int incl = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int up = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += up;
-  }
-  if (lane == 31) wint[warp] = incl;
-  __syncthreads();
-  int before = incl - run, total = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) before += wint[w];
-    total += wint[w];
-  }
-  for (int i = i0; i < i1; ++i) {
-    const int c = cnt[i];
-    out[i] = before;
-    before += c;
-  }
-  __syncthreads();
-  return total;
+  key = lane < kWarps ? wkey[lane] : 0u;
+  top = __reduce_max_sync(kFull, key);
+  return __reduce_min_sync(kFull, key == top && lane < kWarps ? widx[lane]
+                                                              : INT_MAX);
 }
 
 // Point where edge v -> v+1 of a face meets the plane (slice_stack.cu's).
@@ -245,6 +275,7 @@ __device__ __forceinline__ float2 edge_point(const float* gx, const float* gy,
   return make_float2(gx[v] + t * (gx[w] - gx[v]), gy[v] + t * (gy[w] - gy[v]));
 }
 
+template <int kThreads, bool kTimed>
 __global__ void __launch_bounds__(kThreads)
 slice_raw_kernel(const float* __restrict__ fvt, const int4* __restrict__ ids,
                  const float2* __restrict__ z_mm,
@@ -253,9 +284,22 @@ slice_raw_kernel(const float* __restrict__ fvt, const int4* __restrict__ ids,
                  const float* __restrict__ zs, float2* __restrict__ points,
                  long long* __restrict__ n_out, float* __restrict__ area_out,
                  float2* __restrict__ centroid_out,
-                 uint8_t* __restrict__ overflow, int n_faces, int band, int k,
+                 uint8_t* __restrict__ overflow,
+                 long long* __restrict__ stamps, int n_faces, int band, int k,
                  int max_chain, int central) {
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSlots = slots_for(kThreads);
   const size_t bone = blockIdx.x;
+  // the timed build: a barrier, then thread 0 stamps the end of stage i
+  auto stamp = [&](int i) {
+    if constexpr (kTimed) {
+      __syncthreads();
+      if (threadIdx.x == 0 && stamps) stamps[bone * kStamps + i] = clock64();
+    }
+  };
+  long long ns0 = 0;
+  if constexpr (kTimed) ns0 = global_ns();
+  stamp(0);
   const size_t face0 = bone * static_cast<size_t>(n_faces);
   fvt += face0 * 9;
   ids += face0;
@@ -263,21 +307,27 @@ slice_raw_kernel(const float* __restrict__ fvt, const int4* __restrict__ ids,
   z_key += face0;
   cummax_z_max += face0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float wsum[kSums][kWarps];
   __shared__ int wint[kWarps];
-  __shared__ float wval[kWarps];
+  __shared__ unsigned wkey[kWarps];
   __shared__ int widx[kWarps];
-  __shared__ int s_min_orig;
+  __shared__ unsigned wmax[kKinds][kWarps];  // each warp's largest |term|
 
   const Smem sm = carve(smem_raw, k, max_chain);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const float z = zs[bone];
+  // slot j = tid + s * kThreads; warp-wide steps over slots s run where
+  // the warp's first slot exists
+  auto warp_has = [&](int s) { return s * kThreads + (tid - lane) < k; };
 
-  // ---- 1. window (slice_stack.cu stage 1): slots [lo, lo + band) end at
-  // the insertion point of z in z_key, the count of keys below z
+  // ---- 1. window: slots [lo, lo + band) end at the insertion point of z
+  // in z_key, the count of keys below z.  While more keys than threads are
+  // left, each thread tests one key at a stride and the block's count of
+  // keys below z narrows the range to one stride; then one key a thread.
+  for (int p = tid; p < max_chain; p += kThreads) sm.owner[p] = -1;
+  for (int j = tid; j <= k; j += kThreads) sm.cnt[j] = k;  // fpred
   int a0 = 0, span = n_faces;
-  while (span > kThreads * kSearchKeys) {
+  while (span > kThreads) {
     const int stride = (span + kThreads - 1) / kThreads;
     const int i = a0 + (tid + 1) * stride - 1;
     const int below = __syncthreads_count(i < a0 + span && z_key[i] < z);
@@ -285,43 +335,46 @@ slice_raw_kernel(const float* __restrict__ fvt, const int4* __restrict__ ids,
     span = min(stride - 1, a0 + span - a1);
     a0 = a1;
   }
-  int warp_below = 0;
-  for (int i = a0 + tid; i < a0 + span; i += kThreads) {
-    warp_below += z_key[i] < z;
-  }
-  warp_below = __reduce_add_sync(kFull, warp_below);
-  if (lane == 0) widx[warp] = warp_below;
-  for (int j = tid; j <= k; j += kThreads) sm.cnt[j] = k;  // fpred
-  for (int p = tid; p < max_chain; p += kThreads) sm.owner[p] = -1;
-  if (tid == 0) s_min_orig = INT_MAX;
-  __syncthreads();
-  for (int w = 0; w < kWarps; ++w) a0 += widx[w];
+  a0 += __syncthreads_count(tid < span && z_key[a0 + tid] < z);
   const int lo = max(0, min(a0 - band, n_faces - band));
+  // the window overflow test's key: thread 0 loads it now and tests it
+  // after stage 2, so the load's latency overlaps the compaction
   const float below_max = tid == 0 && lo > 0 ? cummax_z_max[lo - 1] : 0.0f;
+  stamp(1);
 
-  // ---- 2. crossing test and stable compaction (slice_stack.cu stage 2)
+  // ---- 2. crossing test and stable compaction into slots [0, min(ncross,
+  // k)): each warp takes a contiguous chunk of the window, 32 positions at
+  // a time (coalesced), each lane keeping its crossing bits; its loads go
+  // out kLoadGroup at a time before any is tested
   const int chunk = ((band + kWarps - 1) / kWarps + 31) & ~31;
   const int iters = chunk / 32;  // <= kMaxRun: band <= kThreads * kMaxRun
   const int w0 = warp * chunk + lane;
   unsigned long long bits = 0ull;
-  int warp_crossed = 0;
-  for (int j = 0; j < iters; ++j) {
-    const int i = w0 + j * 32;
-    bool c = false;
-    if (i < band) {
-      const float2 mm = z_mm[lo + i];
-      c = (mm.y >= z) && (mm.x < z);
+  for (int j0 = 0; j0 < iters; j0 += kLoadGroup) {
+    float2 mm[kLoadGroup];
+#pragma unroll
+    for (int u = 0; u < kLoadGroup; ++u) {
+      const int i = w0 + (j0 + u) * 32;
+      mm[u] = j0 + u < iters && i < band ? z_mm[lo + i]
+                                         : make_float2(INFINITY, -INFINITY);
     }
-    bits |= static_cast<unsigned long long>(c) << j;
-    warp_crossed += __popc(__ballot_sync(kFull, c));
+#pragma unroll
+    for (int u = 0; u < kLoadGroup; ++u) {
+      if ((mm[u].y >= z) && (mm[u].x < z)) bits |= 1ull << (j0 + u);
+    }
   }
+  const int warp_crossed = __reduce_add_sync(kFull, __popcll(bits));
   if (lane == 0) wint[warp] = warp_crossed;
   __syncthreads();
-  int slot = 0, ncross = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) slot += wint[w];
-    ncross += wint[w];
+  // the warps' counts, scanned in each warp: my warp's first slot
+  const int wc = lane < kWarps ? wint[lane] : 0;
+  int incl = wc;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += up;
   }
+  int slot = __shfl_sync(kFull, incl - wc, warp);
+  const int ncross = __shfl_sync(kFull, incl, 31);
   for (int j = 0; j < iters; ++j) {
     const int i = w0 + j * 32;
     const bool c = (bits >> j) & 1ull;
@@ -333,19 +386,29 @@ slice_raw_kernel(const float* __restrict__ fvt, const int4* __restrict__ ids,
     slot += __popc(bal);
   }
   __syncthreads();
+  stamp(2);
   const int nvalid = min(ncross, k);
   const bool over = ncross > k;
   const bool win_over = lo > 0 && below_max >= z;  // thread 0's is read
 
-  // ---- 3. segments of the compact slots and their successor slots
-  // (slice_stack.cu stage 3); a crossed slot's label starts as itself
-  int32_t* lab = sm.lab[0];
-  for (int j = tid; j < k; j += kThreads) {
-    int succ = -1;  // linked successor slot
-    bool crossed = false;
+  // ---- 3. segments of the compact slots and their successor slots; a
+  // crossed slot's label starts as itself, and its label's accumulators
+  // start empty (only crossed slots are labels).  Each warp's largest
+  // |term| of each kind over its crossed slots (non-negative float bits
+  // compare as integers) goes to wmax: the block's sets the fixed-point
+  // exponents of stage 6.
+  int my_lab[kSlots], my_succ[kSlots], my_orig[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = tid + s * kThreads;
+    my_lab[s] = k;
+    my_succ[s] = -1;  // linked successor slot
+    my_orig[s] = INT_MAX;
+    float2 st = make_float2(0.0f, 0.0f), en = st;
     if (j < nvalid) {
       const int f = lo + sm.pos[j];
       const float* g = fvt + static_cast<size_t>(f) * 9;
+      const int4 gi = ids[f];
       float gx[3], gy[3], d[3];
       bool pos[3];
       for (int v = 0; v < 3; ++v) {
@@ -364,194 +427,297 @@ slice_raw_kernel(const float* __restrict__ fvt, const int4* __restrict__ ids,
       }
       entry = max(entry, 0);  // argmax of an all-false row is 0
       exit = max(exit, 0);
-      sm.st[j] = edge_point(gx, gy, d, entry);
-      sm.en[j] = edge_point(gx, gy, d, exit);
-      const int4 gi = ids[f];
-      sm.orig[j] = gi.x;
+      st = edge_point(gx, gy, d, entry);
+      en = edge_point(gx, gy, d, exit);
+      sm.st[j] = st;
+      sm.en[j] = en;
+      my_orig[s] = gi.x;
       const int nbr = exit == 0 ? gi.y : (exit == 1 ? gi.z : gi.w);
       const int sw = nbr >= 0 ? nbr - lo : -1;
       const int si = (sw >= 0 && sw < band) ? sm.inv[sw] : -1;
-      crossed = changes == 2;
-      if (crossed && si >= 0) succ = si;
+      if (changes == 2) {
+        my_lab[s] = j;
+        if (si >= 0) my_succ[s] = si;
+        sm.morig[j] = INT_MAX;
+        for (int i = 0; i < 2 * kKinds; ++i) sm.acc[i * k + j] = 0u;
+      }
     }
-    sm.work[j] = succ;
-    lab[j] = crossed ? j : k;
+    if (s == 0 || warp_has(s)) {
+      for (int c = 0; c < kKinds; ++c) {
+        const unsigned b = my_lab[s] < k
+            ? __float_as_uint(fabsf(seg_term(st, en, c))) : 0u;
+        const unsigned m = __reduce_max_sync(kFull, b);
+        if (lane == 0) wmax[c][warp] = s == 0 ? m : max(wmax[c][warp], m);
+      }
+    }
   }
-  __syncthreads();
+  stamp(3);
 
   // ---- 4. injectivity: the smallest-slot predecessor keeps its successor
-  for (int j = tid; j < k; j += kThreads) {
-    const int t = sm.work[j];
-    if (t >= 0) atomicMin(&sm.cnt[t], j);
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (my_succ[s] >= 0) atomicMin(&sm.cnt[my_succ[s]], tid + s * kThreads);
   }
   __syncthreads();
-  int32_t* ptr = sm.ptr[0];
-  for (int j = tid; j < k; j += kThreads) {
-    const int t = sm.work[j];
-    const int s = (t >= 0 && sm.cnt[t] == j) ? t : j;
-    sm.work[j] = s;
-    ptr[j] = s;
+  int2* cur = sm.pair[0];
+  int2* nxt = sm.pair[1];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = tid + s * kThreads;
+    const int t = my_succ[s];
+    my_succ[s] = (t >= 0 && sm.cnt[t] == j) ? t : j;
+    if (j < k) cur[j] = make_int2(my_lab[s], my_succ[s]);
   }
   __syncthreads();
+  stamp(4);
 
   // ---- 5. min-index labels by pointer doubling (_label_loops), exactly
-  // _iters_for(k) rounds; a slot is crossed iff its label is below k
+  // _iters_for(k) rounds; a slot is crossed iff its label is below k.  The
+  // labels stay in registers: after this, a thread reads only its own.
+  // A slot's label and pointer are one 8-byte word.
+  for (int j = tid; j <= k; j += kThreads) sm.cnt[j] = 0;
   const int rounds = iters_for(k);
-  int32_t* lab_n = sm.lab[1];
-  int32_t* ptr_n = sm.ptr[1];
+  int my_ptr[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) my_ptr[s] = my_succ[s];
   for (int r = 0; r < rounds; ++r) {
-    for (int j = tid; j < k; j += kThreads) {
-      const int l = lab[j], p = ptr[j];
-      lab_n[j] = l < k ? min(l, lab[p]) : l;
-      ptr_n[j] = ptr[p];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = tid + s * kThreads;
+      if (j < k) {
+        const int2 at = cur[my_ptr[s]];
+        if (my_lab[s] < k) my_lab[s] = min(my_lab[s], at.x);
+        my_ptr[s] = at.y;
+        if (r + 1 < rounds) nxt[j] = make_int2(my_lab[s], my_ptr[s]);
+      }
     }
     __syncthreads();
-    int32_t* t = lab; lab = lab_n; lab_n = t;
-    t = ptr; ptr = ptr_n; ptr_n = t;
+    int2* t = cur; cur = nxt; nxt = t;
   }
+  stamp(5);
 
-  // ---- 6. per-label sums in a fixed order.  Counting sort of the crossed
-  // slots by label, stable: counts, offsets (into the dead ptr buffer),
-  // then warp 0 places 32 slots at a time in slot order
-  for (int j = tid; j <= k; j += kThreads) sm.cnt[j] = 0;
-  __syncthreads();
-  for (int j = tid; j < k; j += kThreads) {
-    if (lab[j] < k) atomicAdd(&sm.cnt[lab[j]], 1);
+  // ---- 6. per label, one pass: count, smallest original face id, and
+  // the five exact sums.  The slots of one label in a warp reduce
+  // together; the label's first lane adds their totals.  Every warp first
+  // takes the block's largest |term| of each kind from the warps' maxima.
+  int e_kind[kKinds];
+  for (int c = 0; c < kKinds; ++c) {
+    e_kind[c] = fixed_exp(
+        __reduce_max_sync(kFull, lane < kWarps ? wmax[c][lane] : 0u), k);
   }
-  __syncthreads();
-  int32_t* off = ptr;
-  const int m = block_exclusive_scan(sm.cnt, off, k, wint);
-  int32_t* sorted = sm.pos;
-  if (warp == 0) {
-    for (int c0 = 0; c0 < k; c0 += 32) {
-      const int j = c0 + lane;
-      const int l = j < k ? lab[j] : k;
-      const unsigned peers = __match_any_sync(kFull, l);
-      const int base = l < k ? off[l] : 0;
-      __syncwarp();
-      if (l < k) {
-        sorted[base + __popc(peers & ((1u << lane) - 1u))] = j;
-        if ((peers & ((1u << lane) - 1u)) == 0) off[l] = base + __popc(peers);
-      }
-      __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (!warp_has(s)) continue;
+    const int j = tid + s * kThreads;
+    const int l = j < k ? my_lab[s] : k;
+    const unsigned peers = __match_any_sync(kFull, l);
+    const bool first = l < k && (__ffs(peers) - 1) == lane;
+    const int mo = __reduce_min_sync(peers, l < k ? my_orig[s] : INT_MAX);
+    if (first) {
+      atomicAdd(&sm.cnt[l], __popc(peers));
+      atomicMin(&sm.morig[l], mo);
     }
-  }
-  __syncthreads();
-
-  // segmented scan over the sorted slots; each segment's last slot holds
-  // its label's sums, and its candidate for the pick
-  float carry[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float cand = -INFINITY;
-  int cand_at = INT_MAX;
-  for (int r0 = 0; r0 < m; r0 += kThreads) {
-    const int p = r0 + tid;
-    float v[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    bool head = false;
-    int l = k;
-    if (p < m) {
-      const int j = sorted[p];
-      l = lab[j];
-      head = p == 0 || lab[sorted[p - 1]] != l;
-      const float2 s = sm.st[j], e = sm.en[j];
-      const float cr2 = s.x * e.y - e.x * s.y;
-      v[0] = cr2;
-      v[1] = (s.x + e.x) * cr2;
-      v[2] = (s.y + e.y) * cr2;
-      v[3] = s.x;
-      v[4] = s.y;
+    float2 st = make_float2(0.0f, 0.0f), en = st;
+    if (l < k) {
+      st = sm.st[j];
+      en = sm.en[j];
     }
-    block_seg_scan(v, head, carry, wsum, wint);
-    if (p < m && (p == m - 1 || lab[sorted[p + 1]] != l)) {
-      const float area = 0.5f * v[0];
-      sm.l_area[l] = v[0];
-      sm.l_cx[l] = v[1];
-      sm.l_cy[l] = v[2];
-      const int count = sm.cnt[l];
-      float score;
-      if (central) {
-        const float cf = static_cast<float>(max(count, 1));
-        score = count >= 3 ? -(fabsf(v[3] / cf) + fabsf(v[4] / cf))
-                           : -INFINITY;
-      } else {
-        score = area;
-      }
-      if ((!central || count >= 3) &&
-          (cand_at == INT_MAX || score > cand || (score == cand && l < cand_at))) {
-        cand = score;
-        cand_at = l;
+    for (int c = 0; c < kKinds; ++c) {
+      const long long q = l < k ? to_fixed(seg_term(st, en, c), e_kind[c])
+                                : 0ll;
+      // q + 2^39 lies in [0, 2^40]: two 21-bit limbs, each summed over the
+      // warp's slots of the label exactly in 32 bits, and over a label's k
+      // slots at most
+      const unsigned long long u =
+          static_cast<unsigned long long>(q + (1ll << kFixedBits));
+      const unsigned lo21 =
+          __reduce_add_sync(peers, static_cast<unsigned>(u & 0x1fffffu));
+      const unsigned hi21 =
+          __reduce_add_sync(peers, static_cast<unsigned>(u >> 21));
+      if (first) {
+        atomicAdd(&sm.acc[(2 * c) * k + l], lo21);
+        atomicAdd(&sm.acc[(2 * c + 1) * k + l], hi21);
       }
     }
   }
+  __syncthreads();
+  stamp(6);
+  stamp(7);  // the sums are stage 6's
 
   // ---- 7. pick: largest also weighs the empty labels (area 0), the
   // first of them the smallest
-  if (!central) {
-    for (int l = tid; l < k; l += kThreads) {
-      if (sm.cnt[l] == 0 &&
-          (cand_at == INT_MAX || 0.0f > cand || (0.0f == cand && l < cand_at))) {
-        cand = 0.0f;
-        cand_at = l;
-      }
+  // (a label without a count holds no sums: it is never read)
+  float cand = -INFINITY;
+  int cand_at = INT_MAX;
+  for (int l = tid; l < k; l += kThreads) {
+    const int count = sm.cnt[l];
+    float score = 0.0f;
+    bool ok = !central;
+    if (central && count >= 3) {
+      const float cf = static_cast<float>(count);
+      ok = true;
+      score = -(fabsf(label_sum(sm.acc, 3, l, k, count, e_kind[3]) / cf) +
+                fabsf(label_sum(sm.acc, 4, l, k, count, e_kind[4]) / cf));
+    } else if (!central && count > 0) {
+      score = 0.5f * label_sum(sm.acc, 0, l, k, count, e_kind[0]);
+    }
+    if (ok && (cand_at == INT_MAX || score > cand ||
+               (score == cand && l < cand_at))) {
+      cand = score;
+      cand_at = l;
     }
   }
-  block_argmax(cand, cand_at, wval, widx);
+  cand_at = block_argmax<kThreads>(cand, cand_at, wkey, widx);
   const int best = cand_at == INT_MAX ? 0 : cand_at;
   const int n_best = sm.cnt[best];
+  stamp(8);
 
-  // ---- 8. the loop's smallest original face id
-  for (int j = tid; j < k; j += kThreads) {
-    if (lab[j] == best) atomicMin(&s_min_orig, sm.orig[j]);
-  }
-  __syncthreads();
-  const int min_orig = s_min_orig;
-
-  // ---- 9. pointer-jumping ranks (_order_loop), exactly _iters_for(k)
-  // rounds, in the dead label buffer and the two pointer buffers
-  int32_t* rnk = lab_n;
-  int32_t* rnk_n = sorted;  // off (ptr) and sorted are dead
-  for (int j = tid; j < k; j += kThreads) {
-    const bool rep = lab[j] == best && sm.orig[j] == min_orig;
-    ptr[j] = rep ? j : sm.work[j];
-    rnk[j] = rep ? 0 : 1;
-  }
-  __syncthreads();
-  for (int r = 0; r < rounds; ++r) {
-    for (int j = tid; j < k; j += kThreads) {
-      const int p = ptr[j];
-      rnk_n[j] = rnk[j] + rnk[p];
-      ptr_n[j] = ptr[p];
-    }
-    __syncthreads();
-    int32_t* t = rnk; rnk = rnk_n; rnk_n = t;
-    t = ptr; ptr = ptr_n; ptr_n = t;
-  }
-  for (int j = tid; j < k; j += kThreads) {
-    if (lab[j] != best) continue;
-    const bool rep = sm.orig[j] == min_orig;
-    int q = rep ? 0 : n_best - rnk[j];
-    if (q < 0) q += max_chain;
-    if (q >= 0 && q < max_chain) atomicMax(&sm.owner[q], j);
-  }
-  __syncthreads();
-
-  float2* out = points + bone * static_cast<size_t>(max_chain);
-  for (int p = tid; p < max_chain; p += kThreads) {
-    const int o = sm.owner[p];
-    out[p] = o >= 0 ? sm.st[o] : make_float2(0.0f, 0.0f);
-  }
+  // ---- 8. the loop's smallest original face id, area and centroid (an
+  // empty label's min_orig is never compared: it has no member)
+  const int min_orig = n_best > 0 ? sm.morig[best] : INT_MAX;
   if (tid == 0) {
     float area = 0.0f;
     float2 cen = make_float2(0.0f, 0.0f);
     if (n_best > 0) {
-      area = 0.5f * sm.l_area[best];
+      area = 0.5f * label_sum(sm.acc, 0, best, k, n_best, e_kind[0]);
       const float denom = fabsf(area) > 1e-12f ? 6.0f * area : 1.0f;
-      cen = make_float2(sm.l_cx[best] / denom, sm.l_cy[best] / denom);
+      cen = make_float2(
+          label_sum(sm.acc, 1, best, k, n_best, e_kind[1]) / denom,
+          label_sum(sm.acc, 2, best, k, n_best, e_kind[2]) / denom);
     }
     n_out[bone] = n_best;
     area_out[bone] = area;
     centroid_out[bone] = cen;
     overflow[bone] = (win_over || over) ? 1 : 0;
   }
+  stamp(9);
+
+  // ---- 9. pointer-jumping ranks (_order_loop), exactly _iters_for(k)
+  // rounds, (rank, pointer) words in the dead label buffers
+  cur = sm.pair[0];
+  nxt = sm.pair[1];
+  int my_rnk[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = tid + s * kThreads;
+    const bool rep = my_lab[s] == best && my_orig[s] == min_orig;
+    my_ptr[s] = rep ? j : my_succ[s];
+    my_rnk[s] = rep ? 0 : 1;
+    if (j < k) cur[j] = make_int2(my_rnk[s], my_ptr[s]);
+  }
+  __syncthreads();
+  for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = tid + s * kThreads;
+      if (j < k) {
+        const int2 at = cur[my_ptr[s]];
+        my_rnk[s] += at.x;
+        my_ptr[s] = at.y;
+        if (r + 1 < rounds) nxt[j] = make_int2(my_rnk[s], my_ptr[s]);
+      }
+    }
+    if (r + 1 < rounds) {
+      __syncthreads();
+      int2* t = cur; cur = nxt; nxt = t;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int j = tid + s * kThreads;
+    if (j >= k || my_lab[s] != best) continue;
+    const bool rep = my_orig[s] == min_orig;
+    int q = rep ? 0 : n_best - my_rnk[s];
+    if (q < 0) q += max_chain;
+    if (q >= 0 && q < max_chain) atomicMax(&sm.owner[q], j);
+  }
+  __syncthreads();
+  stamp(10);
+
+  float2* out = points + bone * static_cast<size_t>(max_chain);
+  for (int p = tid; p < max_chain; p += kThreads) {
+    const int o = sm.owner[p];
+    out[p] = o >= 0 ? sm.st[o] : make_float2(0.0f, 0.0f);
+  }
+  if constexpr (kTimed) {
+    stamp(11);
+    if (tid == 0 && stamps) {
+      stamps[bone * kStamps + 12] = ns0;
+      stamps[bone * kStamps + 13] = global_ns();
+    }
+  }
+}
+
+// The largest dynamic shared memory each kernel instance has been allowed
+// on each device: the attribute is set once per device and larger size,
+// not at every launch.
+std::mutex g_smem_mutex;
+int g_smem_allowed[kMaxDevices][4];
+
+template <int kThreads, bool kTimed>
+cudaError_t allow_smem(int device, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  constexpr int instance = (kThreads == 1024 ? 2 : 0) + (kTimed ? 1 : 0);
+  const bool cached = device >= 0 && device < kMaxDevices;
+  std::lock_guard<std::mutex> lock(g_smem_mutex);
+  if (cached &&
+      static_cast<size_t>(g_smem_allowed[device][instance]) >= smem) {
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      slice_raw_kernel<kThreads, kTimed>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && cached) {
+    g_smem_allowed[device][instance] = static_cast<int>(smem);
+  }
+  return err;
+}
+
+template <int kThreads, bool kTimed>
+int launch_width(const float* fvt, const int32_t* ids, const float* z_mm,
+                 const float* z_key, const float* cummax_z_max,
+                 const float* zs, float* points, long long* n, float* area,
+                 float* centroid, uint8_t* overflow, long long* stamps,
+                 int n_faces, int n_bones, int band, int k, int max_chain,
+                 int central, int device, void* stream) {
+  if (k > kThreads * slots_for(kThreads) || band > kThreads * kMaxRun) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_bytes(band, k, max_chain);
+  const cudaError_t err = allow_smem<kThreads, kTimed>(device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  slice_raw_kernel<kThreads, kTimed>
+      <<<n_bones, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      fvt, reinterpret_cast<const int4*>(ids),
+      reinterpret_cast<const float2*>(z_mm), z_key, cummax_z_max, zs,
+      reinterpret_cast<float2*>(points), n, area,
+      reinterpret_cast<float2*>(centroid), overflow, stamps, n_faces, band, k,
+      max_chain, central);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTimed>
+int launch(const float* fvt, const int32_t* ids, const float* z_mm,
+           const float* z_key, const float* cummax_z_max, const float* zs,
+           float* points, long long* n, float* area, float* centroid,
+           uint8_t* overflow, long long* stamps, int n_faces, int n_bones,
+           int band, int k, int max_chain, int central, int device,
+           void* stream) {
+  // the current device is left alone when it is already `device`
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_bones <= 0) return 0;
+  if (k < 1 || k > INT16_MAX || band < k || band > n_faces ||
+      max_chain < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto go = k <= kNarrowK ? &launch_width<kNarrowK, kTimed>
+                          : &launch_width<1024, kTimed>;
+  return go(fvt, ids, z_mm, z_key, cummax_z_max, zs, points, n, area,
+            centroid, overflow, stamps, n_faces, n_bones, band, k, max_chain,
+            central, device, stream);
 }
 
 }  // namespace
@@ -572,28 +738,26 @@ int slice_raw_launch(const float* fvt, const int32_t* ids, const float* z_mm,
                      float* area, float* centroid, uint8_t* overflow,
                      int n_faces, int n_bones, int band, int k, int max_chain,
                      int central, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_bones <= 0) return 0;
-  if (k < 1 || k > INT16_MAX || band < k || band > n_faces ||
-      band > kThreads * kMaxRun || max_chain < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(band, k, max_chain);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(slice_raw_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  slice_raw_kernel<<<n_bones, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      fvt, reinterpret_cast<const int4*>(ids),
-      reinterpret_cast<const float2*>(z_mm), z_key, cummax_z_max, zs,
-      reinterpret_cast<float2*>(points), n, area,
-      reinterpret_cast<float2*>(centroid), overflow, n_faces, band, k,
-      max_chain, central);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(fvt, ids, z_mm, z_key, cummax_z_max, zs, points, n,
+                       area, centroid, overflow, nullptr, n_faces, n_bones,
+                       band, k, max_chain, central, device, stream);
+}
+
+// The same launch of the timed build, for measurement only; the main path
+// never calls it.  It writes kStamps int64 per block into `stamps` (B x 14:
+// clock64 at the start and after each stage, then %globaltimer at the
+// start and the end).
+int slice_raw_launch_timed(const float* fvt, const int32_t* ids,
+                           const float* z_mm, const float* z_key,
+                           const float* cummax_z_max, const float* zs,
+                           float* points, long long* n, float* area,
+                           float* centroid, uint8_t* overflow,
+                           long long* stamps, int n_faces, int n_bones,
+                           int band, int k, int max_chain, int central,
+                           int device, void* stream) {
+  return launch<true>(fvt, ids, z_mm, z_key, cummax_z_max, zs, points, n,
+                      area, centroid, overflow, stamps, n_faces, n_bones,
+                      band, k, max_chain, central, device, stream);
 }
 
 }  // extern "C"

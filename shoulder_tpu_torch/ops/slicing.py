@@ -56,12 +56,17 @@ KERNEL_MAX_K = 2048
 KERNEL_MAX_BAND = 16384
 KERNEL_MAX_BONES = 65535  # the launch's grid y dimension: one bone each
 # the raw-loop kernel (csrc/slice_raw.cu) takes k and band as the
-# slice-stack kernel does and max_chain output points: at these limits its
-# block takes 60 k + 4 max_chain + 2 band bytes, 184 KB
+# slice-stack kernel does and max_chain output points; its block takes
+# 84 k + 4 max_chain + 2 band bytes (csrc/slice_raw.cu), and a launch
+# whose block would pass the card's 227 KB is refused (the wrapper raises)
 RAW_MAX_CHAIN = 8192
 SELECTS = ("largest", "central")
 STAGES = ("window", "compaction", "segments", "injectivity", "walk",
           "moments", "roll", "knots", "resample")  # timed kernel's stages
+# the raw-loop kernel's timed stages: its nine, the per-label sums in their
+# two halves (the counts, then the sums), and the output write
+RAW_STAGES = ("window", "compaction", "segments", "injectivity", "labels",
+              "counts", "sums", "pick", "min_orig", "ranks", "write")
 launch_count = 0  # slice-stack kernel launches since the caller reset it
 raw_launch_count = 0  # raw-loop kernel launches since the caller reset it
 
@@ -541,12 +546,16 @@ def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
 
 
 def stage_times(stamps):
-    """(us, ghz) from a timed launch's stamps: each block's time in each
-    of `STAGES` (S, 9) in microseconds, and the SM clock in GHz, taken as
-    the blocks' cycles over their %globaltimer nanoseconds."""
+    """(us, ghz) from a timed launch's stamps (rows of clock64 at the
+    start and after each of n stages, then %globaltimer at the start and
+    the end): each block's time in each stage (rows, n) in microseconds
+    (`STAGES` of the slice-stack kernel, `RAW_STAGES` of the raw loop's),
+    and the SM clock in GHz, taken as the blocks' cycles over their
+    %globaltimer nanoseconds."""
     s = stamps.cpu().double()
-    ghz = float((s[:, 9] - s[:, 0]).sum() / (s[:, 11] - s[:, 10]).sum())
-    return (s[:, 1:10] - s[:, 0:9]) / (ghz * 1e3), ghz
+    n = s.shape[1] - 3
+    ghz = float((s[:, n] - s[:, 0]).sum() / (s[:, n + 2] - s[:, n + 1]).sum())
+    return (s[:, 1:n + 1] - s[:, 0:n]) / (ghz * 1e3), ghz
 
 
 def compact_points(points, mask, out_n: int):
@@ -681,16 +690,24 @@ def check_raw_args(sg: SortedGeom, z, band: int, max_chain: int,
 
 
 def slice_raw_kernel(sg: SortedGeom, z, band: int, max_chain: int,
-                     select: str, k: int):
+                     select: str, k: int, stamps=None, lib=None):
     """One launch of csrc/slice_raw.cu over the planes z (B,) of a bone
     batch (CUDA tensors; band and k already clamped): what
     `slice_raw_banded_plain` returns.  Raises on arguments the kernel does
-    not take, on a failed build and on a refused launch."""
+    not take, on a failed build and on a refused launch.
+
+    With `stamps`, a (B, len(RAW_STAGES) + 3) int64 tensor, it launches the
+    kernel's timed build, which writes each block's stage clocks there
+    (`stage_times`).  `lib`: another build of the same entry points
+    (measurement only; the package's own library by default)."""
     check_raw_args(sg, z, band, max_chain, select, k)
+    if stamps is not None:
+        _check_out("stamps", stamps, torch.int64,
+                   (z.shape[0], len(RAW_STAGES) + 3), z)
     if z.device.type != "cuda":
         raise ValueError(f"the raw-loop kernel runs on CUDA tensors, not "
                          f"{z.device}")
-    lib = kernels.library()
+    lib = lib or kernels.library()
     n_bones, dev = z.shape[0], z.device
     f32 = dict(dtype=torch.float32, device=dev)
     points = torch.empty((n_bones, max_chain, 2), **f32)
@@ -698,12 +715,17 @@ def slice_raw_kernel(sg: SortedGeom, z, band: int, max_chain: int,
     area = torch.empty((n_bones,), **f32)
     centroid = torch.empty((n_bones, 2), **f32)
     overflow = torch.empty((n_bones,), dtype=torch.bool, device=dev)
-    rc = lib.slice_raw_launch(
+    outs = [points.data_ptr(), n.data_ptr(), area.data_ptr(),
+            centroid.data_ptr(), overflow.data_ptr()]
+    launcher = lib.slice_raw_launch
+    if stamps is not None:
+        launcher = lib.slice_raw_launch_timed
+        outs.append(stamps.data_ptr())
+    rc = launcher(
         sg.fvt.data_ptr(), sg.ids.data_ptr(), sg.z_mm.data_ptr(),
         sg.z_key.data_ptr(), sg.cummax_z_max.data_ptr(), z.data_ptr(),
-        points.data_ptr(), n.data_ptr(), area.data_ptr(),
-        centroid.data_ptr(), overflow.data_ptr(), sg.z_key.shape[-1],
-        n_bones, band, k, max_chain, SELECTS.index(select), dev.index or 0,
+        *outs, sg.z_key.shape[-1], n_bones, band, k, max_chain,
+        SELECTS.index(select), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

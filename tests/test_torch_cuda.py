@@ -343,44 +343,75 @@ def _assert_raw_equal(got, want, loops_equal=True):
         assert float((g.centroid - w.centroid).abs().max()) <= 1e-3
 
 
+# (band, k, max_chain) of the raw-loop kernel's two launch shapes: the
+# main path's tiny-config planes (k 512, a block of 512 threads) and the CT
+# sizes (band 6144, k 1024, max_chain 1024, a block of 1024 threads)
+RAW_SHAPES = {"main": (CFG.full.band, 512, CFG.max_chain),
+              "ct": (6144, 1024, 1024)}
+
+
+@pytest.mark.parametrize("shape", sorted(RAW_SHAPES))
 @pytest.mark.parametrize("select", tsl.SELECTS)
-def test_cuda_raw_loop_matches_plain(card, four_bones, select):
+def test_cuda_raw_loop_matches_plain(card, four_bones, select, shape):
     """The raw-loop kernel, one launch for 4 bones, against the plain
     composition on the card at three heights, and each bone's own launch
     bit for bit."""
     sg, z_min, z_max = four_bones
-    band = min(CFG.full.band, sg.z_key.shape[-1])
+    band, k, max_chain = RAW_SHAPES[shape]
+    band = min(band, sg.z_key.shape[-1])
     for rel in (0.3, 0.55, 0.8):
         z = (z_min + rel * (z_max - z_min)).contiguous()
         before = tsl.raw_launch_count
-        got = tsl.slice_raw_banded(sg, z, band, CFG.max_chain, select, k=512)
+        got = tsl.slice_raw_banded(sg, z, band, max_chain, select, k=k)
         assert tsl.raw_launch_count == before + 1
-        k = min(512, band)
-        want = tsl.slice_raw_banded_plain(sg, z, band, CFG.max_chain, select,
-                                          k)
+        k = min(k, band)
+        want = tsl.slice_raw_banded_plain(sg, z, band, max_chain, select, k)
         torch.cuda.synchronize()
         _assert_raw_equal(got, want)
         assert int(got[0].n.min()) > 10
         for b in range(z.shape[0]):
             one = tsl.slice_raw_kernel(tsl.SortedGeom(*(x[b:b + 1] for x in sg)),
-                                       z[b:b + 1], band, CFG.max_chain,
-                                       select, k)
+                                       z[b:b + 1], band, max_chain, select, k)
             for g, w in zip((*got[0], got[1]), (*one[0], one[1])):
                 assert torch.equal(g[b:b + 1], w)
 
 
+@pytest.mark.parametrize("shape", sorted(RAW_SHAPES))
 @pytest.mark.parametrize("select", tsl.SELECTS)
-def test_cuda_raw_loop_overflow_matches_plain(card, four_bones, select):
+def test_cuda_raw_loop_overflow_matches_plain(card, four_bones, select,
+                                              shape):
     """k 24 below the planes' crossing counts: the chains break and their
     ranks run past the count; the kernel places every point where the
     plain composition does, those past n included."""
     sg, z_min, z_max = four_bones
-    band = min(CFG.full.band, sg.z_key.shape[-1])
+    band, _k, max_chain = RAW_SHAPES[shape]
+    band = min(band, sg.z_key.shape[-1])
     z = (z_min + 0.55 * (z_max - z_min)).contiguous()
-    got = tsl.slice_raw_banded(sg, z, band, CFG.max_chain, select, k=24)
-    want = tsl.slice_raw_banded_plain(sg, z, band, CFG.max_chain, select, 24)
+    got = tsl.slice_raw_banded(sg, z, band, max_chain, select, k=24)
+    want = tsl.slice_raw_banded_plain(sg, z, band, max_chain, select, 24)
     torch.cuda.synchronize()
     assert bool(want[1].all())
     _assert_raw_equal(got, want, loops_equal=False)
-    past = torch.arange(CFG.max_chain, device=card) >= want[0].n[:, None]
+    past = torch.arange(max_chain, device=card) >= want[0].n[:, None]
     assert float(want[0].points[past].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("shape", sorted(RAW_SHAPES))
+def test_cuda_raw_loop_timed_build(card, four_bones, shape):
+    """The timed build gives the untimed kernel's result bit for bit, and
+    stamps that run forward through every stage."""
+    sg, z_min, z_max = four_bones
+    band, k, max_chain = RAW_SHAPES[shape]
+    band = min(band, sg.z_key.shape[-1])
+    z = (z_min + 0.55 * (z_max - z_min)).contiguous()
+    args = (sg, z, band, max_chain, "central", min(k, band))
+    stamps = torch.zeros((z.shape[0], len(tsl.RAW_STAGES) + 3),
+                         dtype=torch.int64, device=card)
+    timed = tsl.slice_raw_kernel(*args, stamps=stamps)
+    plain = tsl.slice_raw_kernel(*args)
+    torch.cuda.synchronize()
+    for g, w in zip((*timed[0], timed[1]), (*plain[0], plain[1])):
+        assert torch.equal(g, w)
+    us, ghz = tsl.stage_times(stamps)
+    assert us.shape == (z.shape[0], len(tsl.RAW_STAGES))
+    assert bool((us >= 0).all()) and 0.5 < ghz < 3.0

@@ -94,6 +94,8 @@ def test_port_imports_no_jax():
               ROOT / "tools" / "eval_arthritic_ab_torch.py",
               ROOT / "tools" / "eval_accuracy_torch.py",
               ROOT / "tools" / "refresh_evidence_torch.py",
+              ROOT / "tools" / "eval_ct_pitch_torch.py",
+              ROOT / "tools" / "raw_loop_ab_torch.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files

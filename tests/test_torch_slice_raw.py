@@ -4,15 +4,16 @@ raw-loop kernel's steps as a plain model.
 `slicing.slice_raw_banded` takes the plain composition
 (`slice_raw_banded_plain`) on CPU tensors and launches csrc/slice_raw.cu
 on CUDA tensors; the kernel path refuses CPU tensors.  The kernel's steps
-after the compaction (labels, a stable counting sort by label with
-per-label sums in that fixed order, the pick over present labels and the
-first empty one, the smallest original face id, the pointer-jumping ranks
-with the largest slot winning a collision) are stated here in PyTorch
-(`raw_kernel_model`) and held against the plain composition: its sums
-against `_loop_stats`, its loop and points against `raw_loop`, on the
-tiny bone's planes (k 24 overflows) and on rows built for the pick's
-corner cases.  The kernel itself is held to the plain composition on the
-card (tests/test_torch_cuda.py, chip_smoke.py phases 5b and 9).
+after the compaction (labels, per-label counts and exact fixed-point
+per-label sums, the pick over present labels and the first empty one, the
+smallest original face id, the pointer-jumping ranks with the largest
+slot winning a collision) are stated here in PyTorch (`raw_kernel_model`)
+and held against the plain composition: its sums against `_loop_stats`,
+its loop and points against `raw_loop`, on the tiny bone's planes (k 24
+overflows), at the CT shape (k 1024, band 6144, max_chain 1024) on a bone
+whose neck loop is longer than 512 faces, and on rows built for the
+pick's corner cases.  The kernel itself is held to the plain composition
+on the card (tests/test_torch_cuda.py, chip_smoke.py phases 5b and 9).
 """
 
 import numpy as np
@@ -49,19 +50,25 @@ def _compaction(sg, z, band, k):
 
 
 def label_sums(lab, start, end, k):
-    """The kernel's per-label sums: the crossed slots (labels below k)
-    sorted by label, stably (slot order within a label), and summed in
-    that order.  Returns (sums (B, k + 1, 5): cross, (x_s + x_e) * cross,
-    (y_s + y_e) * cross, x_s, y_s; counts (B, k + 1))."""
-    order = torch.sort(lab, dim=1, stable=True).indices
-    lab_s = lab.gather(1, order)
-    s = start.gather(1, order[..., None].expand(-1, -1, 2))
-    e = end.gather(1, order[..., None].expand(-1, -1, 2))
+    """The kernel's per-label sums, exact: each term of the crossed slots
+    (labels below k) times 2^e rounded to an integer, e per row and kind
+    from the largest |term| (max < 2^ex, e = 39 - ex - ceil(log2 k)), the
+    integers summed per label (in any order: integer sums are exact), the
+    sum rounded once to float32 and scaled back by 2^-e.  Returns (sums
+    (B, k + 1, 5): cross, (x_s + x_e) * cross, (y_s + y_e) * cross, x_s,
+    y_s; counts (B, k + 1))."""
+    s, e = start, end
     cr2 = s[..., 0] * e[..., 1] - e[..., 0] * s[..., 1]
     v = torch.stack([cr2, (s[..., 0] + e[..., 0]) * cr2,
                      (s[..., 1] + e[..., 1]) * cr2, s[..., 0], s[..., 1]], -1)
-    sums = torch.zeros((lab.shape[0], k + 1, 5), dtype=start.dtype)
-    sums.scatter_add_(1, lab_s[..., None].expand(-1, -1, 5), v)
+    crossed = (lab < k)[..., None]
+    _m, ex = torch.frexp(torch.where(crossed, v.abs(), 0.0).amax(dim=1))
+    log2k = 0 if k < 2 else (k - 1).bit_length()
+    scale = torch.pow(2.0, (39 - ex - log2k).double())[:, None, :]
+    q = torch.where(crossed, torch.round(v.double() * scale), 0.0)
+    fixed = torch.zeros((lab.shape[0], k + 1, 5), dtype=torch.int64)
+    fixed.scatter_add_(1, lab[..., None].expand(-1, -1, 5), q.to(torch.int64))
+    sums = (fixed.to(torch.float32).double() / scale).to(torch.float32)
     counts = torch.zeros((lab.shape[0], k + 1), dtype=torch.int64)
     counts.scatter_add_(1, lab, torch.ones_like(lab))
     return sums, counts
@@ -81,18 +88,15 @@ def raw_kernel_model(crossed, start, end, succ, orig, max_chain, select):
         lab, ptr = (torch.where(lab < k, torch.minimum(lab, lab.gather(1, ptr)),
                                 lab),
                     ptr.gather(1, ptr))
-    # 6. per-label sums in the sorted order
+    # 6. per-label counts and exact sums
     sums, counts = label_sums(lab, start, end, k)
     sums, counts = sums[:, :k], counts[:, :k]
     area = 0.5 * sums[..., 0]
     present = counts > 0
     # 7. pick: (value, first label) over present labels and, for largest,
-    # the first empty label at area 0; central: label 0 where none counts
+    # every empty label at area 0; central: label 0 where none counts
     if select == "largest":
-        first_empty = torch.cumsum((~present).to(torch.int64), 1) == 1
-        val = torch.where(present, area, torch.where(
-            first_empty & ~present, 0.0, -torch.inf))
-        best = torch.argmax(val, dim=1)
+        best = torch.argmax(torch.where(present, area, 0.0), dim=1)
     else:
         cnt = torch.clamp(counts, min=1).to(start.dtype)
         score = (torch.abs(sums[..., 3] / cnt) + torch.abs(sums[..., 4] / cnt))
@@ -107,7 +111,7 @@ def raw_kernel_model(crossed, start, end, succ, orig, max_chain, select):
         / denom[:, None]
     a = torch.where(n_best > 0, a, 0.0)
     cen = torch.where((n_best > 0)[:, None], cen, 0.0)
-    # 8. the loop's smallest original face id
+    # 8. the loop's smallest original face id; its sums are the label's
     member = lab == pick
     min_orig = torch.where(member, orig, tsl._BIG).amin(dim=1, keepdim=True)
     rep = member & (orig == min_orig)
@@ -151,6 +155,53 @@ def _check_model(rows, max_chain, select):
     return got
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def long_loop_sg():
+    """A bone of 64 rings of 320 faces' width (40,960 faces) through the
+    port's ingest, a batch of one: its planes cross about 640 faces, more
+    than the main path's 512 slots, as a CT mesh's neck plane does."""
+    from shoulder_tpu_torch.io import ingest, stl
+    from shoulder_tpu_torch.io.testdata import synthetic_humerus
+    from shoulder_tpu_torch.utils import geometry as tgeom
+
+    v, f = synthetic_humerus(n_rings=64, n_theta=320,
+                             rng_transform=np.random.default_rng(5))
+    nb, wt = stl.edge_face_adjacency(f)
+    spec = ingest.spec_from_arrays("long", v, f, nb, wt,
+                                   config=tiny_config(max_faces=40960,
+                                                      max_verts=24576))
+    verts = tgeom.transform_pts(
+        torch.as_tensor(spec.vertices, dtype=torch.float32),
+        torch.as_tensor(spec.obb_transform, dtype=torch.float32))
+    sg = tsl.sorted_geom(*(torch.as_tensor(np.asarray(a))[None] for a in (
+        verts, spec.faces, spec.neighbors, spec.face_orig)))
+    return sg, float(verts[:, 2].min()), float(verts[:, 2].max())
+
+
+@pytest.mark.parametrize("select", tsl.SELECTS)
+def test_kernel_model_at_the_ct_shape(long_loop_sg, select):
+    """k 1024, band 6144, max_chain 1024 (the CT sizes, a block of 1024
+    threads on the card) on planes whose loops pass 512 faces: the model's
+    loop, points and sums against the plain composition."""
+    sg, zlo, zhi = long_loop_sg
+    sg = tsl.SortedGeom(*(x.expand((4,) + x.shape[1:]).contiguous()
+                          for x in sg))
+    z = (zlo + torch.tensor([0.5, 0.7, 0.85, 0.9]) * (zhi - zlo)).float()
+    rows = _compaction(sg, z, 6144, 1024)
+    assert not bool(tsl._window_starts(sg, z[:, None], 6144)[2].any())
+    got = _check_model(rows, 1024, select)
+    assert int(got.n.max()) > 512
+
+
 @pytest.mark.parametrize("select", tsl.SELECTS)
 @pytest.mark.parametrize("k", [512, 24])
 def test_kernel_model_on_the_tiny_bone(tiny_sg, select, k):
@@ -174,8 +225,8 @@ def test_kernel_model_on_the_tiny_bone(tiny_sg, select, k):
 
 
 def test_label_sums_match_loop_stats(tiny_sg):
-    """The counting sort's per-label sums against _loop_stats: counts
-    exactly, area, centroid and mean point to rounding."""
+    """The exact per-label sums against _loop_stats: counts exactly, area,
+    centroid and mean point to rounding."""
     sg, zlo, zhi = tiny_sg
     sg = tsl.SortedGeom(*(x.expand((4,) + x.shape[1:]).contiguous()
                           for x in sg))
