@@ -28,7 +28,10 @@ Phases (any failure raises, so the exit code is non-zero):
      radius, with no slice overflow; the fused slice-stack kernel must
      have been launched exactly once per stack for the whole batch (3),
      the raw-loop kernel (csrc/slice_raw.cu) once for the batch's
-     surgical-neck planes, the standalone walk and the plain compaction
+     surgical-neck planes, the sphere score kernel twice and the sphere
+     fit kernel 30 times (the batch's one sphere_segment call: two picks,
+     two passes for each of 2 seed fits and 12 IRLS passes, one for each
+     of 2 basin sigmas), the standalone walk and the plain compaction
      never; one bone runs again on the CPU (plain
      composition) and must agree within 0.75 deg / 0.75 mm, bench.py's
      gate;
@@ -59,6 +62,23 @@ Phases (any failure raises, so the exit code is non-zero):
      its planes at the CT shape, their bounds, and each stage's
      microseconds inside a block from the kernel's timed build
      (slicing.RAW_STAGES);
+ 5c. sphere kernels vs plain: phase 4's sphere_segment call (its 8 bones'
+     polar points, the UNet's masks) run again with every call of the two
+     kernels (csrc/sphere_score.cu, csrc/sphere_fit.cu, through
+     ops/sphere.py) recorded, equal to phase 4's result bit for bit; each
+     recorded call's kernel result against its plain PyTorch version on the
+     same inputs: the scores of the hypotheses a pick may take within
+     1e-5 relative (the others' error printed) and the same pick or a tie
+     of the plain scores (ties counted and printed), each seed fit's and
+     IRLS pass's sphere and each basin sigma within 1e-3 mm; the whole
+     call with the plain versions on the card: every bone's refined
+     sphere within 1e-3 mm, its mask on at least 99.9 % of its pixels;
+     each batched kernel call equal to its bones' own calls bit for bit,
+     and each bone's sphere_segment alone against its batch row (bit for
+     bit counted, held to the same tolerances); kernel, plain and bound
+     times of the score (round B), a given-weight fit, an IRLS pass and a
+     basin sigma, for the batch and bone 0 alone, the fits beside torch.bmm
+     of the same (A w)^T [A | f] product;
   6. timing: a batch of 1 and a batch of 8 at DEFAULT_CONFIG with the
      UNet, each profiled once (kernel launches: the profiler's
      cudaLaunchKernel and every launch API call, plus the port's own
@@ -71,7 +91,8 @@ Phases (any failure raises, so the exit code is non-zero):
      on the card, and 6 synchronized runs of each timed in turns (plain,
      kernel, kernel, plain, ...), both printed, the kernel's
      synchronizing calls no more than the plain one's; launches per batch
-     of 8 at most 1.25x a batch of 1's, synchronizing calls no more; the
+     of 8 at most 1.25x a batch of 1's, synchronizing calls no more and
+     at most 3; the
      largest batch the card holds, linear in B from the two peaks;
   7. facade: the README flow through shoulder_tpu_torch.Humerus on the card
      (canal on z through the origin, metrics equal to phase 4's bone 0
@@ -247,7 +268,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from shoulder_tpu_torch.utils.bench import card, launch_counts, reset_launches
+from shoulder_tpu_torch.utils.bench import (card, launch_counts,
+                                            port_launches, reset_launches,
+                                            sphere_launch_counts)
 
 BATCH = 8
 REPS = 5
@@ -1264,6 +1287,387 @@ def raw_loop_phase(main_raw, bone0_raw, smi):
     return worst, res
 
 
+# phase 5c: the sphere kernels against their plain versions on the card:
+# the scores of the hypotheses a pick may take (finite, radius in (10,
+# 45) mm) within a relative SCORE_REL (below one point's weight, within
+# SCORE_REL absolute), the pick the same or a tie (the top two plain
+# scores within SCORE_REL relative), each fit's sphere and every bone's
+# refined sphere within SPHERE_MM, each bone's mask on MASK_AGREE of its
+# pixels
+SCORE_REL = 1e-5
+SPHERE_MM = 1e-3
+MASK_AGREE = 0.999
+SPHERE_CALLS = ("scores", "fit_moments", "irls_moments", "sigma_sums")
+
+
+@contextlib.contextmanager
+def recording_kw(module, name, sink):
+    """Within the block, module.name runs as usual and each call's
+    (args, kwargs, result) is appended to sink."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        sink.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def plain_sphere():
+    """Within the block, models/segment.sphere_segment takes the plain
+    PyTorch versions of the sphere kernels on every device."""
+    from shoulder_tpu_torch.ops import sphere
+
+    plain = {"scores": sphere.score_plain, "fit_moments": sphere.moments_plain,
+             "irls_moments": lambda pts, radius, center, scale, w_heur, heur:
+             sphere.irls_moments_plain(pts, radius, center, scale, w_heur),
+             "sigma_sums": sphere.sigma_sums_plain}
+    with contextlib.ExitStack() as stack:
+        for name, fn in plain.items():
+            stack.enter_context(swapped(sphere, name, fn))
+        yield
+
+
+def sphere_launches(cfg):
+    """(score, fit) kernel launches of one sphere_segment call under cfg:
+    one score launch per pick (rounds A and B); two fit launches for each
+    seed fit (the top rows, and the UNet's mask with the UNet segmenter)
+    and each IRLS pass, one for each basin sigma (rounds A and the
+    refined sphere)."""
+    seeds = 2 if cfg.segmenter == "unet" else 1
+    return 2, 2 * (seeds + cfg.sphere_seg_iters) + 2
+
+
+def sphere_work(kind, n_bones, n_points, n_hyp=0, w_vectors=0):
+    """(bytes, float32 operations) one call must move and do, each input
+    read once and each output written once.  A (point, hypothesis) pair
+    of the score takes 18 operations (difference, norm, residual, scale,
+    the Tukey term, the row weight, the sum); a point of a fit 8 for the
+    first pass's sums and 35 for the centred moments, and 16 more where
+    its Tukey weight is made; the sigma's pass 20 a point.  `w_vectors`:
+    the given weight vectors of P (1 where one vector serves every bone)."""
+    pts = 12 * n_bones * n_points
+    if kind == "score":
+        n_bytes = (pts + 4 * n_points + 16 * n_bones * n_hyp + 4 * n_bones
+                   + 4 * n_bones * n_hyp)
+        return n_bytes, 18 * n_bones * n_hyp * n_points
+    per_point = {"given": 8 + 35, "tukey": 16 + 8 + 35, "sigma": 20}[kind]
+    outs = 4 * n_bones * (2 if kind == "sigma" else 3 + 20)
+    ins = 4 * n_points * w_vectors if kind == "given" else 20 * n_bones
+    return pts + ins + outs, per_point * n_bones * n_points
+
+
+def rel_err(got, want, floor=1.0):
+    """Largest |got - want| / max(|want|, floor) (0 over no values), NaN
+    where want is NaN equal to NaN."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError("the kernel and the plain version disagree on "
+                             "which values are NaN")
+    if not got.numel():
+        return 0.0
+    d = (got.nan_to_num() - want.nan_to_num()).abs()
+    return float((d / want.nan_to_num().abs().clamp(min=floor)).max())
+
+
+def check_scores(calls):
+    """Each recorded score call's kernel result against score_plain on the
+    same inputs: the largest relative error over the hypotheses the pick
+    may take (sphere.pickable), which must stay within SCORE_REL, and over
+    the others, printed (a radius of thousands of mm puts float32 rounding
+    of the distances, ~5e-4 mm, into both versions' residuals); both
+    beside the same sums in float64; the picks compared (a different pick
+    must be a tie of the plain scores)."""
+    from shoulder_tpu_torch.ops import sphere
+
+    worst, worst_abs, worst_other = 0.0, 0.0, 0.0
+    picks, ties, f64 = 0, [], []
+    for (pts, w_row, h_rad, h_cen, scale), _, got in calls:
+        want = sphere.score_plain(pts, w_row, h_rad, h_cen, scale)
+        ok = sphere.pickable(h_rad, h_cen)
+        err = rel_err(got[ok], want[ok])
+        worst = max(worst, err)
+        worst_other = max(worst_other, rel_err(got[~ok], want[~ok]))
+        worst_abs = max(worst_abs, float((got[ok] - want[ok]).abs().max()))
+        # both against the same sums in float64, to tell whose rounding
+        # a difference is
+        exact = sphere.score_plain(
+            pts.double(), w_row.double(), h_rad.double(), h_cen.double(),
+            scale.double() if torch.is_tensor(scale) else scale)
+        f64.append((rel_err(got[ok].double(), exact[ok]),
+                    rel_err(want[ok].double(), exact[ok])))
+        if err > SCORE_REL:
+            d = torch.where(ok, (got - want).abs()
+                            / want.abs().clamp(min=1.0), 0.0).nan_to_num()
+            b, h = divmod(int(torch.argmax(d)), got.shape[-1])
+            raise AssertionError(
+                f"sphere scores off their plain version by {err:.3g} "
+                f"relative (bone {b}, hypothesis {h} of radius "
+                f"{float(h_rad[b, h])!r}: kernel {float(got[b, h])!r}, "
+                f"plain {float(want[b, h])!r}, float64 "
+                f"{float(exact[b, h])!r}); against float64, kernel / "
+                f"plain: {f64}")
+        k_pick = torch.argmax(torch.where(ok, got, -1.0), dim=-1)
+        p_pick = torch.argmax(torch.where(ok, want, -1.0), dim=-1)
+        picks += k_pick.numel()
+        for b in torch.nonzero(k_pick != p_pick).flatten().tolist():
+            top, other = (float(want[b, p_pick[b]]),
+                          float(want[b, k_pick[b]]))
+            if top - other > SCORE_REL * abs(top):
+                raise AssertionError(
+                    f"bone {b}: the score kernel picks hypothesis "
+                    f"{int(k_pick[b])}, the plain version {int(p_pick[b])}, "
+                    f"plain scores {top} / {other}: no tie")
+            ties.append((b, int(k_pick[b]), int(p_pick[b]), top, other))
+    return {"calls": len(calls), "max_rel_err": worst,
+            "max_abs_err": worst_abs, "max_rel_err_unpickable": worst_other,
+            "picks": picks, "ties": ties, "vs_float64": f64}
+
+
+def check_fits(rec, eye4):
+    """Each recorded fit, IRLS and sigma call's kernel result against its
+    plain version on the same inputs, compared as the spheres (or sigmas)
+    they give, in mm, and the moments' largest error relative to their
+    matrix's largest entry.  Raises beyond SPHERE_MM."""
+    from shoulder_tpu_torch.ops import sphere
+
+    def sphere_err(got, want):
+        (gr, gc), (wr, wc) = (sphere.solve(*got, eye4),
+                              sphere.solve(*want, eye4))
+        rel = float(((got[1] - want[1]).abs().amax(dim=(-2, -1))
+                     / want[1].abs().amax(dim=(-2, -1))).max())
+        return max(float((gr - wr).abs().max()),
+                   float((gc - wc).abs().max())), rel
+
+    res = {}
+    for name in ("fit_moments", "irls_moments"):
+        mm = rel = 0.0
+        for args, _, got in rec[name]:
+            want = (sphere.moments_plain(*args) if name == "fit_moments"
+                    else sphere.irls_moments_plain(*args[:5]))
+            e_mm, e_rel = sphere_err(got, want)
+            mm, rel = max(mm, e_mm), max(rel, e_rel)
+        res[name] = {"calls": len(rec[name]), "max_sphere_mm": mm,
+                     "max_moment_rel": rel}
+    mm = rel = 0.0
+    for args, _, got in rec["sigma_sums"]:
+        want = sphere.sigma_sums_plain(*args)
+
+        def sigma(s):
+            return torch.sqrt(s[1] / torch.clamp(s[0], min=1.0))
+        mm = max(mm, float((sigma(got) - sigma(want)).abs().max()))
+        rel = max(rel, rel_err(got[0], want[0]), rel_err(got[1], want[1],
+                                                          floor=1e-6))
+    res["sigma_sums"] = {"calls": len(rec["sigma_sums"]), "max_sigma_mm": mm,
+                         "max_sum_rel": rel}
+    worst = max(res["fit_moments"]["max_sphere_mm"],
+                res["irls_moments"]["max_sphere_mm"],
+                res["sigma_sums"]["max_sigma_mm"])
+    if worst > SPHERE_MM:
+        raise AssertionError(f"a sphere fit off its plain version by "
+                             f"{worst:.3g} mm: {res}")
+    return res
+
+
+def sphere_kernels_per_bone(rec):
+    """Raise unless every recorded batched call's kernel result equals the
+    kernel's result on each bone alone, bit for bit; returns the launches
+    compared."""
+    from shoulder_tpu_torch.ops import sphere
+
+    def one(x, b):
+        return x[b:b + 1] if torch.is_tensor(x) and x.dim() else x
+
+    n = 0
+    for (pts, w_row, h_rad, h_cen, scale), _, got in rec["scores"]:
+        for b in range(pts.shape[0]):
+            alone = sphere.sphere_score_kernel(
+                one(pts, b), w_row, one(h_rad, b), one(h_cen, b),
+                one(scale, b))
+            if not same_tensor(alone, got[b:b + 1]):
+                raise AssertionError(f"sphere score: bone {b} alone differs "
+                                     f"from its batch row")
+            n += 1
+    fits = [((pts,), dict(weights=sphere.GIVEN, w=w))
+            for (pts, w), _, _ in rec["fit_moments"]]
+    fits += [((pts,), dict(weights=sphere.TUKEY, radius=r.contiguous(),
+                            center=c.contiguous(), scale=s))
+             for (pts, r, c, s, _, _), _, _ in rec["irls_moments"]]
+    fits += [((pts,), dict(weights=sphere.SIGMA, radius=r.contiguous(),
+                            center=c.contiguous(), scale=s))
+             for (pts, r, c, s), _, _ in rec["sigma_sums"]]
+    for (pts,), kw in fits:
+        batch = sphere.sphere_fit_kernel(pts, **kw)
+        for b in range(pts.shape[0]):
+            alone = sphere.sphere_fit_kernel(
+                one(pts, b), **{k: one(v, b) for k, v in kw.items()})
+            for g, w in zip(alone, batch):
+                if g is not None and not same_tensor(g, w[b:b + 1]):
+                    raise AssertionError(f"sphere fit ({kw['weights']}): "
+                                         f"bone {b} alone differs from its "
+                                         f"batch row")
+            n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def segment_agreement(got, want):
+    """Per bone: mask agreement, |d radius|, max |d centre| (mm) and
+    |d mean_resid| of two sphere_segment results."""
+    mask = (got[0] == want[0]).float().mean(dim=(-2, -1))
+    return {"mask_agree": mask.tolist(),
+            "radius_mm": (got[1] - want[1]).abs().tolist(),
+            "center_mm": (got[2] - want[2]).abs().amax(dim=-1).tolist(),
+            "mean_resid_mm": (got[3] - want[3]).abs().tolist()}
+
+
+def time_sphere(name, fn, plain, work, smi, library=None):
+    """Kernel, plain and (where one PyTorch call computes the same)
+    library times of one call, CUDA events, and its bound."""
+    n_bytes, n_ops = work
+    res = {"ms": timed_cuda(fn, 50), "plain_ms": timed_cuda(plain, 3),
+           "library_ms": None if library is None else timed_cuda(library, 50),
+           "bytes": n_bytes, "ops": n_ops}
+    res["bound_ms"], res["bound_by"] = bound(n_bytes, n_ops)
+    lib_txt = ("" if library is None
+               else f", library {res['library_ms']:.4f} ms")
+    log(f"sphere time, {name}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.3f} ms{lib_txt}, bound "
+        f"{res['bound_ms'] * 1e3:.3f} us by {res['bound_by']} ({n_bytes} B, "
+        f"{n_ops} ops), {100 * res['bound_ms'] / res['ms']:.3g} % of it "
+        f"({smi})")
+    return res
+
+
+def time_sphere_kernels(rec, smi):
+    """Phase 5c's times: the score kernel on round B's call and the fit
+    kernel on the top-rows seed fit, the first IRLS pass and round A's
+    sigma, for the batch and for bone 0 alone; plain versions beside them
+    and, for the fit, torch.bmm of the same (A w)^T [A | f] product (its
+    operands made beforehand; matmul TF32 off)."""
+    from shoulder_tpu_torch.ops import sphere
+
+    def one(x):
+        return x[:1].contiguous() if torch.is_tensor(x) and x.dim() else x
+
+    res = {}
+    for tag, cut in (("batch", lambda x: x), ("bone0", one)):
+        pts, w_row, h_rad, h_cen, scale = rec["scores"][-1][0]
+        pts, h_rad, h_cen, scale = (cut(x) for x in (pts, h_rad, h_cen,
+                                                      scale))
+        n_bones, n_points = pts.shape[0], pts.shape[1]
+        res[tag] = {"bones": n_bones, "points": n_points,
+                    "hypotheses": h_rad.shape[-1]}
+        res[tag]["score"] = time_sphere(
+            f"score, {tag} ({n_bones} bones, {h_rad.shape[-1]} hypotheses)",
+            lambda: sphere.sphere_score_kernel(pts, w_row, h_rad, h_cen,
+                                               scale),
+            lambda: sphere.score_plain(pts, w_row, h_rad, h_cen, scale),
+            sphere_work("score", n_bones, n_points, h_rad.shape[-1]), smi)
+        (_, w), _, _ = rec["fit_moments"][0]
+        w = w[:n_bones]
+        mean, _ = sphere.moments_plain(pts, w)
+        q = pts - mean[..., None, :]
+        a = torch.cat([2.0 * q, torch.ones_like(q[..., :1])], dim=-1)
+        aw_t = (a * w[..., None]).transpose(-1, -2).contiguous()
+        af = torch.cat([a, torch.sum(q**2, dim=-1, keepdim=True)], dim=-1)
+        res[tag]["fit_given"] = time_sphere(
+            f"fit, given weights (top rows), {tag}",
+            lambda: sphere.sphere_fit_kernel(pts, sphere.GIVEN, w=w),
+            lambda: sphere.moments_plain(pts, w),
+            sphere_work("given", n_bones, n_points,
+                        w_vectors=1 if w.stride(0) == 0 else n_bones), smi,
+            library=lambda: torch.bmm(aw_t, af))
+        args = [cut(x) for x in rec["irls_moments"][0][0][:5]]
+        res[tag]["fit_irls"] = time_sphere(
+            f"fit, one IRLS pass (Tukey weights made inside), {tag}",
+            lambda: sphere.sphere_fit_kernel(
+                args[0], sphere.TUKEY, radius=args[1], center=args[2],
+                scale=args[3]),
+            lambda: sphere.irls_moments_plain(*args),
+            sphere_work("tukey", n_bones, n_points), smi,
+            library=lambda: torch.bmm(aw_t, af))
+        s_args = [cut(x) for x in rec["sigma_sums"][0][0]]
+        res[tag]["sigma"] = time_sphere(
+            f"basin sigma, {tag}",
+            lambda: sphere.sphere_fit_kernel(
+                s_args[0], sphere.SIGMA, radius=s_args[1], center=s_args[2],
+                scale=s_args[3]),
+            lambda: sphere.sigma_sums_plain(*s_args),
+            sphere_work("sigma", n_bones, n_points), smi)
+    return res
+
+
+def sphere_phase(call, smi):
+    """Phase 5c: the sphere kernels against their plain versions on the
+    card, on phase 4's sphere_segment call (`call`: args, kwargs, result).
+    Its rerun with every kernel call recorded equals phase 4's result bit
+    for bit; each recorded call's kernel result against its plain version
+    on the same inputs (scores within SCORE_REL and the same pick or a
+    counted tie; each fit's sphere and sigma within SPHERE_MM); the whole
+    call with the plain versions on the card against the kernels' (every
+    bone's sphere within SPHERE_MM, its mask on MASK_AGREE of its pixels);
+    each batched kernel call equal to its bones' own calls bit for bit,
+    and each bone's sphere_segment alone against its batch row (printed,
+    held to the same tolerances); then the times."""
+    from shoulder_tpu_torch.models import segment
+    from shoulder_tpu_torch.ops import sphere
+
+    args, kwargs, got = call
+    rec = {name: [] for name in SPHERE_CALLS}
+    with contextlib.ExitStack() as stack:
+        for name in SPHERE_CALLS:
+            stack.enter_context(recording_kw(sphere, name, rec[name]))
+        again = segment.sphere_segment(*args, **kwargs)
+    torch.cuda.synchronize()
+    if not same_stack(again, got):
+        raise AssertionError("sphere_segment on the card is not "
+                             "deterministic: its rerun differs")
+    eye4 = torch.eye(4, device=got[1].device)
+    res = {"scores": check_scores(rec["scores"]),
+           "fits": check_fits(rec, eye4)}
+    log(f"sphere kernels vs plain: scores {res['scores']}, fits "
+        f"{res['fits']}")
+
+    with plain_sphere():
+        plain = segment.sphere_segment(*args, **kwargs)
+    torch.cuda.synchronize()
+    res["vs_plain"] = segment_agreement(got, plain)
+    log(f"sphere_segment, kernels vs plain versions on the card: "
+        f"{res['vs_plain']}")
+
+    res["kernel_launches_compared"] = sphere_kernels_per_bone(rec)
+    n_bones = got[1].shape[0]
+    alone = []
+    for b in range(n_bones):
+        one = segment.sphere_segment(
+            args[0][b:b + 1], *args[1:],
+            **{k: (v[b:b + 1] if torch.is_tensor(v) else v)
+               for k, v in kwargs.items()})
+        alone.append(one)
+    alone = tuple(torch.cat(x) for x in zip(*alone))
+    res["bones_bit_equal_alone"] = sum(
+        same_stack([x[b] for x in alone], [x[b] for x in got])
+        for b in range(n_bones))
+    res["alone_vs_batch"] = segment_agreement(alone, got)
+    log(f"sphere kernels: every batched launch equals its bones' own "
+        f"({res['kernel_launches_compared']} compared); sphere_segment bone "
+        f"by bone alone: {res['bones_bit_equal_alone']} of {n_bones} bit for "
+        f"bit their batch rows, {res['alone_vs_batch']}")
+    for what in ("vs_plain", "alone_vs_batch"):
+        agree = res[what]
+        if (min(agree["mask_agree"]) < MASK_AGREE
+                or max(agree["radius_mm"] + agree["center_mm"]) > SPHERE_MM):
+            raise AssertionError(f"sphere_segment {what}: {agree}")
+    res["time"] = time_sphere_kernels(rec, smi)
+    return res
+
+
 def ct_config():
     """DEFAULT_CONFIG's stacks and UNet segmenter with the padded sizes of
     a 1.0 mm CT mesh (~250k faces, tools/eval_ct_pitch.py:37-50)."""
@@ -2229,13 +2633,15 @@ def nan_trap_leg(td, dev, rf, seg2d, bones, lm, smi, launches, ingest):
         with nan_trap.trap(raise_first=False) as mode:
             got = B.compute_landmarks_batch(batch, rf, cfg=cfg,
                                             seg_model=seg, chunk=16)
+        checked = port_launches()
         one_batch(f"nan trap {name}", launches)
         res = out[name] = {
-            "aten_calls": mode.calls, "n_sites": len(mode.sites),
+            "aten_calls": mode.calls, "kernel_launches": checked,
+            "n_sites": len(mode.sites),
             "sites": [dataclasses.asdict(s) for s in mode.sites[:20]],
             "equal": same_stack(got, ref)}
-        log(f"robustness nan trap, {name}: {mode.calls} aten calls and 4 "
-            f"kernel launches checked, {len(mode.sites)} sites "
+        log(f"robustness nan trap, {name}: {mode.calls} aten calls and "
+            f"{checked} kernel launches checked, {len(mode.sites)} sites "
             f"{mode.sites[:3]}, landmarks bit for bit the untrapped run's: "
             f"{res['equal']}")
         if mode.sites or not res["equal"]:
@@ -2900,7 +3306,7 @@ def main(td):
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.io import ingest, native, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
-    from shoulder_tpu_torch.models import forest, unet
+    from shoulder_tpu_torch.models import forest, segment, unet
     from shoulder_tpu_torch.ops import kernels, slicing
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import landmarks as L
@@ -2966,16 +3372,26 @@ def main(td):
     t0 = time.perf_counter()
     with recording(slicing, "slice_stack", []) as main_stacks, \
             recording_raw([]) as main_raw, \
-            recording(slicing, "_compact_slice", []) as compactions:
+            recording(slicing, "_compact_slice", []) as compactions, \
+            recording_kw(segment, "sphere_segment", []) as main_sphere:
         lm = B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
                                        seg_model=seg)
         torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches, raw_launches, walk_launches = launch_counts()
+    score_launches, fit_launches = sphere_launch_counts()
     log(f"pipeline: first batch of {BATCH} in {first_s:.2f} s, "
         f"{launches} slice-stack launches, {raw_launches} raw-loop launches "
         f"(the batch's surgical-neck planes), {walk_launches} walk "
-        f"launches, {len(compactions)} plain compactions")
+        f"launches, {len(compactions)} plain compactions, "
+        f"{score_launches} sphere-score and {fit_launches} sphere-fit "
+        f"launches")
+    if ((score_launches, fit_launches) != sphere_launches(DEFAULT_CONFIG)
+            or len(main_sphere) != 1):
+        raise AssertionError(f"the main path made {score_launches} sphere "
+                             f"score and {fit_launches} sphere fit launches, "
+                             f"expected {sphere_launches(DEFAULT_CONFIG)} "
+                             f"from one sphere_segment call")
     if launches != 3 or len(main_stacks) != 3:
         raise AssertionError(f"the main path made {launches} slice-stack "
                              f"launches, expected 3 for the batch")
@@ -3044,6 +3460,9 @@ def main(td):
     # ---- the raw-loop kernel against its plain version
     raw_worst, raw_time = raw_loop_phase(main_raw[0], bone0_raw[0], smi)
     del main_raw, bone0_raw
+    # ---- the sphere kernels against their plain versions
+    sphere_res = sphere_phase(main_sphere[0], smi)
+    del main_sphere
 
     # ---- timing: a batch of 1 against a batch of 8; each also with the
     # plain raw loop the parent tree ran on the card (profiled and
@@ -3092,6 +3511,9 @@ def main(td):
             or full["syncs"] > one["syncs"]:
         raise AssertionError("a batch of 8 takes more launches or syncs "
                              "than the batch fold allows")
+    if full["syncs"] > 3:
+        raise AssertionError(f"a batch of {BATCH} makes {full['syncs']} "
+                             f"synchronizing calls, more than 3")
 
     with ingest_split(split := {}):
         facade = facade_phase(td, paths[0], dev, lm_np, smi)
@@ -3232,6 +3654,47 @@ def main(td):
         "library_ms": None,
         "batch": raw_time,
         "ct": ct_res["raw_time"],
+    }, {
+        "name": "sphere_score",
+        "route": "cuda",
+        "source": "shoulder_tpu_torch/csrc/sphere_score.cu",
+        "replaces": "shoulder_tpu/models/segment.py:174",
+        "replaces_kind": "XLA code (sphere_segment), no TPU kernel",
+        "launches": score_launches,
+        "max_abs_err": sphere_res["scores"]["max_abs_err"],
+        "max_rel_err": sphere_res["scores"]["max_rel_err"],
+        "picks_compared": sphere_res["scores"]["picks"],
+        "ties": sphere_res["scores"]["ties"],
+        "ms": sphere_res["time"]["batch"]["score"]["ms"],
+        "plain_ms": sphere_res["time"]["batch"]["score"]["plain_ms"],
+        "bound_ms": sphere_res["time"]["batch"]["score"]["bound_ms"],
+        "bound_by": sphere_res["time"]["batch"]["score"]["bound_by"],
+        "library_ms": None,
+        "bone0": sphere_res["time"]["bone0"]["score"],
+    }, {
+        "name": "sphere_fit",
+        "route": "cuda",
+        "source": "shoulder_tpu_torch/csrc/sphere_fit.cu",
+        "replaces": "shoulder_tpu/models/segment.py:145",
+        "replaces_kind": "XLA code (sphere_segment), no TPU kernel",
+        "launches": fit_launches,
+        "max_abs_err": max(sphere_res["fits"]["fit_moments"]["max_sphere_mm"],
+                           sphere_res["fits"]["irls_moments"]["max_sphere_mm"],
+                           sphere_res["fits"]["sigma_sums"]["max_sigma_mm"]),
+        "fits": sphere_res["fits"],
+        "ms": sphere_res["time"]["batch"]["fit_irls"]["ms"],
+        "plain_ms": sphere_res["time"]["batch"]["fit_irls"]["plain_ms"],
+        "bound_ms": sphere_res["time"]["batch"]["fit_irls"]["bound_ms"],
+        "bound_by": sphere_res["time"]["batch"]["fit_irls"]["bound_by"],
+        "library_ms": sphere_res["time"]["batch"]["fit_irls"]["library_ms"],
+        "given": sphere_res["time"]["batch"]["fit_given"],
+        "sigma": sphere_res["time"]["batch"]["sigma"],
+        "bone0": {key: sphere_res["time"]["bone0"][key]
+                  for key in ("fit_given", "fit_irls", "sigma")},
+        "segment_vs_plain": sphere_res["vs_plain"],
+        "segment_alone_vs_batch": sphere_res["alone_vs_batch"],
+        "bones_bit_equal_alone": sphere_res["bones_bit_equal_alone"],
+        "kernel_launches_compared": sphere_res["kernel_launches_compared"],
     }, {
         "name": "chain_walk",
         "route": "cuda",

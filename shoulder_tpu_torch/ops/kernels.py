@@ -118,5 +118,17 @@ def library():
         lib.slice_raw_launch_timed.restype = i32
         lib.slice_raw_smem_bytes.argtypes = [i32, i32, i32]
         lib.slice_raw_smem_bytes.restype = ctypes.c_longlong
+        f32, i64 = ctypes.c_float, ctypes.c_longlong
+        lib.sphere_score_launch.argtypes = ([ptr] * 5 + [f32] + [ptr] * 3
+                                            + [i32] * 4 + [ptr])
+        lib.sphere_score_launch.restype = i32
+        lib.sphere_fit_launch.argtypes = ([ptr, ptr, i64] + [ptr] * 3
+                                          + [f32, i32, i32] + [ptr] * 5
+                                          + [i32] * 3 + [ptr])
+        lib.sphere_fit_launch.restype = i32
+        for name in ("sphere_score_tile", "sphere_score_max_hyp",
+                     "sphere_fit_tile", "sphere_fit_partials"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
         _lib = lib
     return _lib

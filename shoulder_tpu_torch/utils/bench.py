@@ -19,11 +19,13 @@ import warnings
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count set to 0."""
-    from shoulder_tpu_torch.ops import chain_walk, slicing
+    from shoulder_tpu_torch.ops import chain_walk, slicing, sphere
 
     chain_walk.launch_count = 0
     slicing.launch_count = 0
     slicing.raw_launch_count = 0
+    sphere.score_launch_count = 0
+    sphere.fit_launch_count = 0
 
 
 def launch_counts() -> tuple[int, int, int]:
@@ -35,6 +37,18 @@ def launch_counts() -> tuple[int, int, int]:
             chain_walk.launch_count)
 
 
+def sphere_launch_counts() -> tuple[int, int]:
+    """(sphere score, sphere fit) launches since reset_launches()."""
+    from shoulder_tpu_torch.ops import sphere
+
+    return sphere.score_launch_count, sphere.fit_launch_count
+
+
+def port_launches() -> int:
+    """Every launch of the port's own kernels since reset_launches()."""
+    return sum(launch_counts()) + sum(sphere_launch_counts())
+
+
 def count_launches(run) -> dict:
     """One profiled call of run(), waited for: the profiler's launch API
     calls by name (`launch_api`), the port's own kernel launches
@@ -43,14 +57,14 @@ def count_launches(run) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    port0 = launch_counts()
+    port0 = port_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    port = sum(launch_counts()) - sum(port0)
+    port = port_launches() - port0
     api = {e.key: e.count for e in prof.key_averages()
            if "LaunchKernel" in e.key}
     return {"launch_api": api, "port_launches": port,

@@ -13,8 +13,9 @@ every launch of the port's CUDA kernels, is checked for a NaN.
 
 A site names the op and the innermost frame of this package that called
 it.  The kernels (`ops/kernels.py`) are called through ctypes, past the
-dispatcher, so `trap` also wraps `slicing.slice_stack_kernel` and
-`slicing.slice_raw_kernel` and checks their outputs after each launch.
+dispatcher, so `trap` also wraps `slicing.slice_stack_kernel`,
+`slicing.slice_raw_kernel`, `sphere.sphere_score_kernel` and
+`sphere.sphere_fit_kernel` and checks their outputs after each launch.
 
 Uninitialized memory (the outputs of `aten.empty*` and `new_empty*`) is
 not checked but filled with NaN where it is floating point: a slot that
@@ -118,27 +119,29 @@ class NanTrap(TorchDispatchMode):
 def trap(raise_first: bool = True):
     """Within the block, every aten call and every kernel launch runs
     under a `NanTrap`, which the block gets."""
-    from shoulder_tpu_torch.ops import slicing
+    from shoulder_tpu_torch.ops import slicing, sphere
 
     mode = NanTrap(raise_first)
 
-    def checked(name):
-        fn = getattr(slicing, name)
+    def checked(module, name):
+        fn = getattr(module, name)
+        site = f"{module.__name__.rsplit('.', 1)[-1]}.{name}"
 
         def wrapped(*args, **kwargs):
             out = fn(*args, **kwargs)
             with _disable_current_modes():  # the check's own ops unchecked
-                mode.check(f"slicing.{name}", out)
+                mode.check(site, out)
             return out
         return fn, wrapped
 
-    saved = [(name, *checked(name))
-             for name in ("slice_stack_kernel", "slice_raw_kernel")]
-    for name, _, wrapped in saved:
-        setattr(slicing, name, wrapped)
+    saved = [(module, name, *checked(module, name)) for module, name in (
+        (slicing, "slice_stack_kernel"), (slicing, "slice_raw_kernel"),
+        (sphere, "sphere_score_kernel"), (sphere, "sphere_fit_kernel"))]
+    for module, name, _, wrapped in saved:
+        setattr(module, name, wrapped)
     try:
         with mode:
             yield mode
     finally:
-        for name, fn, _ in saved:
-            setattr(slicing, name, fn)
+        for module, name, fn, _ in saved:
+            setattr(module, name, fn)

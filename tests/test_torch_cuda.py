@@ -14,12 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from shoulder_tpu_torch.config import tiny_config
 from shoulder_tpu_torch.host import obb
 from shoulder_tpu_torch.io import ingest, native, stl
 from shoulder_tpu_torch.io.testdata import synthetic_humerus
-from shoulder_tpu_torch.models import ct_unet, unet
-from shoulder_tpu_torch.ops import chain_walk, marching_tets
+from shoulder_tpu_torch.models import ct_unet, segment, unet
+from shoulder_tpu_torch.ops import chain_walk, kernels, marching_tets, sphere
 from shoulder_tpu_torch.ops import slicing as tsl
 from shoulder_tpu_torch.pipeline import ct
 from shoulder_tpu_torch.utils import geometry as geom
@@ -415,3 +416,210 @@ def test_cuda_raw_loop_timed_build(card, four_bones, shape):
     us, ghz = tsl.stage_times(stamps)
     assert us.shape == (z.shape[0], len(tsl.RAW_STAGES))
     assert bool((us >= 0).all()) and 0.5 < ghz < 3.0
+
+
+# the sphere kernels (csrc/sphere_score.cu, csrc/sphere_fit.cu) at
+# DEFAULT_CONFIG's polar image, 512 x 512 points a bone: the scores of the
+# hypotheses a pick may take within a relative 1e-5 (below one point's
+# weight, 1e-5 absolute), each fit's sphere within 1e-3 mm of the plain
+# version on the card
+SPHERE_RC = (512, 512)
+
+
+def _domes(n_bones, seed=0, r=SPHERE_RC[0], c=SPHERE_RC[1]):
+    """(B, R, C, 3) float32 polar points: a noisy spherical dome of
+    random centre and radius on a flared shaft, one per bone."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(-np.pi, np.pi, c, endpoint=False)
+    out = []
+    for _ in range(n_bones):
+        cen = np.array([*rng.normal(0, 2, 2), 275.0])
+        rad0 = rng.uniform(21.0, 26.0)
+        z = np.linspace(cen[2] + rad0, cen[2] - 2.5 * rad0, r)
+        rad = np.sqrt(np.clip(rad0**2 - (z - cen[2]) ** 2, 0, None))
+        rad = np.where(z > cen[2] - 0.5 * rad0, rad,
+                       0.6 * rad0 + 0.1 * (cen[2] - z))
+        rad = (rad[:, None]
+               + 1.5 * np.cos(3 * th)[None] * (z < cen[2])[:, None])
+        rad = rad + rng.normal(0, 0.05, (r, c))
+        out.append(np.stack([cen[0] + rad * np.cos(th)[None],
+                             cen[1] + rad * np.sin(th)[None],
+                             np.broadcast_to(z[:, None], (r, c))], -1))
+    return np.stack(out).astype(np.float32)
+
+
+def _sphere_case(card, n_bones=3, seed=0):
+    """(pts (B, P, 3), w_row (P,), h_rad (B, H), h_cen (B, H, 3)) on the
+    card: the RANSAC spheres of the main path's draw and two more."""
+    r, c = SPHERE_RC
+    pts = torch.as_tensor(_domes(n_bones, seed), device=card).reshape(
+        n_bones, r * c, 3)
+    hyp = segment.ransac_indices(int(0.4 * r) * c, card)
+    quads = pts.index_select(1, hyp.reshape(-1)).reshape(n_bones, -1, 4, 3)
+    a4 = torch.cat([2.0 * quads, torch.ones_like(quads[..., :1])], -1)
+    sol = torch.linalg.solve_ex(a4, torch.sum(quads**2, -1)).result
+    h_cen = torch.cat([sol[..., :3], pts[:, :2]], 1).contiguous()
+    h_rad = torch.cat([torch.sqrt(torch.clamp(
+        sol[..., 3] + torch.sum(sol[..., :3] ** 2, -1), min=1e-9)),
+        torch.full((n_bones, 2), 24.0, device=card)], 1).contiguous()
+    t = torch.clamp((torch.arange(r * c, device=card) // c - 0.45 * r)
+                    / (0.3 * r), 0.0, 1.0)
+    return pts, 1.0 - 0.8 * t * t * (3.0 - 2.0 * t), h_rad, h_cen
+
+
+@pytest.mark.parametrize("scale", ["number", "per_bone"])
+def test_cuda_sphere_score_matches_plain(card, scale):
+    pts, w_row, h_rad, h_cen = _sphere_case(card)
+    s = 0.7 if scale == "number" else torch.tensor([0.7, 1.2, 2.0],
+                                                   device=card)
+    before = sphere.score_launch_count
+    got = sphere.scores(pts, w_row, h_rad, h_cen, s)
+    want = sphere.score_plain(pts, w_row, h_rad, h_cen, s)
+    torch.cuda.synchronize()
+    assert sphere.score_launch_count == before + 1
+    assert torch.equal(torch.isfinite(want), torch.isfinite(got))
+    ok = torch.isfinite(want) & sphere.pickable(h_rad, h_cen)
+    assert float(want[ok].max()) > 1e3
+    rel = (got[ok] - want[ok]).abs() / want[ok].abs().clamp(min=1.0)
+    assert float(rel.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["given", "given_shared", "tukey", "sigma"])
+def test_cuda_sphere_fit_matches_plain(card, kind):
+    pts, _, h_rad, h_cen = _sphere_case(card)
+    eye4 = torch.eye(4, device=card)
+    radius, center = h_rad[:, -1].contiguous(), h_cen[:, 0].contiguous()
+    scale = torch.tensor([1.0, 1.5, 0.7], device=card)
+    before = sphere.fit_launch_count
+    if kind.startswith("given"):
+        w = (torch.rand(pts.shape[:2], generator=torch.Generator(
+            device=card).manual_seed(3), device=card) < 0.3).float()
+        if kind == "given_shared":
+            w = w[0].expand_as(w)
+        got = sphere.fit_moments(pts, w)
+        want = sphere.moments_plain(pts, w)
+    elif kind == "tukey":
+        w_heur = (torch.arange(pts.shape[1], device=card) // SPHERE_RC[1]
+                  < 0.3 * SPHERE_RC[0]).float().expand(pts.shape[:2])
+        heur = sphere.moments_plain(pts, w_heur)
+        got = sphere.irls_moments(pts, radius, center, scale, w_heur, heur)
+        want = sphere.irls_moments_plain(pts, radius, center, scale, w_heur)
+    else:
+        got = sphere.sigma_sums(pts, radius, center, 1.0)
+        want = sphere.sigma_sums_plain(pts, radius, center, 1.0)
+    torch.cuda.synchronize()
+    assert sphere.fit_launch_count == before + (1 if kind == "sigma" else 2)
+    if kind == "sigma":
+        assert float(want[0].min()) > 100.0
+        for g, w_ in zip(got, want):
+            assert float(((g - w_).abs() / w_.abs()).max()) <= 1e-5
+        return
+    g_r, g_c = sphere.solve(*got, eye4)
+    w_r, w_c = sphere.solve(*want, eye4)
+    assert float((g_r - w_r).abs().max()) <= 1e-3
+    assert float((g_c - w_c).abs().max()) <= 1e-3
+
+
+def test_cuda_sphere_kernels_are_batch_invariant(card):
+    """Each bone's scores, sums and moments alone equal its row of the
+    batched launch bit for bit."""
+    pts, w_row, h_rad, h_cen = _sphere_case(card)
+    radius, center = h_rad[:, -1].contiguous(), h_cen[:, 0].contiguous()
+    scale = torch.tensor([1.0, 1.5, 0.7], device=card)
+    w = pts[..., 2] > pts[..., 2].mean(dim=-1, keepdim=True)
+    w = w.float()
+    batch = [sphere.sphere_score_kernel(pts, w_row, h_rad, h_cen, scale),
+             *sphere.sphere_fit_kernel(pts, sphere.GIVEN, w=w),
+             *sphere.sphere_fit_kernel(pts, sphere.TUKEY, radius=radius,
+                                       center=center, scale=scale),
+             sphere.sphere_fit_kernel(pts, sphere.SIGMA, radius=radius,
+                                      center=center, scale=0.9)[0]]
+    for b in range(pts.shape[0]):
+        one = slice(b, b + 1)
+        alone = [sphere.sphere_score_kernel(pts[one], w_row, h_rad[one],
+                                            h_cen[one], scale[one]),
+                 *sphere.sphere_fit_kernel(pts[one], sphere.GIVEN,
+                                           w=w[one]),
+                 *sphere.sphere_fit_kernel(pts[one], sphere.TUKEY,
+                                           radius=radius[one],
+                                           center=center[one],
+                                           scale=scale[one]),
+                 sphere.sphere_fit_kernel(pts[one], sphere.SIGMA,
+                                          radius=radius[one],
+                                          center=center[one], scale=0.9)[0]]
+        for g, w_ in zip(alone, batch):
+            assert torch.equal(g, w_[one])
+
+
+def test_cuda_sphere_refused_launch_raises(card):
+    """Arguments the kernels cannot take: the C entry points refuse them
+    and launch nothing (cudaErrorInvalidValue), and the wrappers raise
+    on a refused launch."""
+    pts, w_row, h_rad, h_cen = _sphere_case(card, n_bones=1)
+    lib = kernels.library()
+    out = torch.empty(1, 300, device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    rc = lib.sphere_score_launch(
+        pts.data_ptr(), w_row.data_ptr(), h_rad.data_ptr(), h_cen.data_ptr(),
+        None, 1.0, out.data_ptr(), out.data_ptr(), out.data_ptr(),
+        pts.shape[1], 1, 300, card.index or 0, stream)
+    assert rc == 1
+    rc = lib.sphere_fit_launch(
+        pts.data_ptr(), None, 0, h_cen.data_ptr(), h_rad.data_ptr(), None,
+        1.0, 2, sphere.SIGMA, out.data_ptr(), out.data_ptr(),
+        out.data_ptr(), out.data_ptr(), out.data_ptr(), pts.shape[1], 1,
+        card.index or 0, stream)
+    assert rc == 1
+
+    class Refusing:
+        """The library, with every launch's hypothesis count or pass made
+        one the kernel refuses."""
+
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def sphere_score_launch(self, *args):
+            return lib.sphere_score_launch(*args[:11], 300, *args[12:])
+
+        def sphere_fit_launch(self, *args):
+            return lib.sphere_fit_launch(*args[:7], 2, sphere.SIGMA,
+                                         *args[9:])
+
+    before = (sphere.score_launch_count, sphere.fit_launch_count)
+    with pytest.raises(RuntimeError, match="sphere_score kernel launch"):
+        sphere.sphere_score_kernel(pts, w_row, h_rad, h_cen, 1.0,
+                                   lib=Refusing())
+    with pytest.raises(RuntimeError, match="sphere_fit kernel launch"):
+        sphere.sphere_fit_kernel(pts, sphere.SIGMA, radius=h_rad[:, 0],
+                                 center=h_cen[:, 0].contiguous(), scale=1.0,
+                                 lib=Refusing())
+    with pytest.raises(ValueError, match="hypotheses above"):
+        sphere.sphere_score_kernel(pts, w_row,
+                                   torch.full((1, 300), 24.0, device=card),
+                                   torch.zeros(1, 300, 3, device=card), 1.0)
+    assert (sphere.score_launch_count, sphere.fit_launch_count) == before
+    torch.cuda.synchronize()
+
+
+def test_cuda_sphere_segment_matches_plain(card):
+    """sphere_segment through the kernels against the same call through
+    the plain versions on the card: every sphere within 1e-3 mm, every
+    mask on 99.9 % of its pixels, and the counts of one call."""
+    r, c = SPHERE_RC
+    pts = torch.as_tensor(_domes(2, seed=4), device=card)
+    hyp = segment.ransac_indices(int(0.4 * r) * c, card)
+    sup = torch.zeros(2, r, c, device=card)
+    sup[:, : int(0.45 * r)] = 1.0
+    before = (sphere.score_launch_count, sphere.fit_launch_count)
+    got = segment.sphere_segment(pts, hyp, 12, 2.0, 0.3, init_mask=sup,
+                                 support_mask=sup)
+    assert (sphere.score_launch_count - before[0],
+            sphere.fit_launch_count - before[1]) == (2, 30)
+    with chip_smoke.plain_sphere():
+        want = segment.sphere_segment(pts, hyp, 12, 2.0, 0.3, init_mask=sup,
+                                      support_mask=sup)
+    torch.cuda.synchronize()
+    agree = (got[0] == want[0]).float().mean(dim=(-2, -1))
+    assert float(agree.min()) >= 0.999
+    assert float((got[1] - want[1]).abs().max()) <= 1e-3
+    assert float((got[2] - want[2]).abs().max()) <= 1e-3

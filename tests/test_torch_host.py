@@ -96,6 +96,8 @@ def test_port_imports_no_jax():
               ROOT / "tools" / "refresh_evidence_torch.py",
               ROOT / "tools" / "eval_ct_pitch_torch.py",
               ROOT / "tools" / "raw_loop_ab_torch.py",
+              ROOT / "tools" / "sphere_kernels_torch.py",
+              ROOT / "tools" / "phase6_torch.py",
               ROOT / "tests" / "test_torch_cuda.py"]
     assert len(files) > 15
     bad = [(str(p.relative_to(ROOT)), m) for p in files

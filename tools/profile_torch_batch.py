@@ -5,7 +5,8 @@ one batch at DEFAULT_CONFIG under torch.profiler with a named range
 around each pipeline stage.  The pipeline runs each stage once per batch
 over the leading bone dimension, so each range is entered once per batch
 (a slice-stack launch three times).  Prints the batch wall time, the device's
-busy and idle share over it, host time and kernel time per stage, the
+busy and idle share over it, host time and kernel time per stage (and
+per range inside sphere_segment: its scoring, fits, sigmas and rim), the
 top kernels by device time, and the host's launches and waits; with
 --trace, writes the Chrome trace (tens of MB).
 
@@ -40,6 +41,25 @@ STAGES = ("slice_stack_kernel", "slice_raw_kernel", "_compact_slice",
           "chain_walk_marked", "sorted_geom", "_surgical_neck", "_canal",
           "_groove", "_anp_image_points", "segment_image", "sphere_segment",
           "_anp_from_mask", "_transepicondylar", "_metrics")
+# the ranges inside models/segment.sphere_segment (entered only while a
+# profiler records): the hypotheses and their scoring, the seed fits and
+# the IRLS passes, the basin sigmas and the refined sphere's residuals,
+# and the rim cut with the support gate
+SPHERE_RANGES = ("sphere_segment.score", "sphere_segment.fit",
+                 "sphere_segment.sigma", "sphere_segment.rim")
+RANGES = STAGES + SPHERE_RANGES
+# the library's kernels (csrc/) that each range launches, by the name the
+# trace gives them
+OWN_KERNELS = {
+    "slice_stack_kernel": ("slice_stack_kernel",),
+    "slice_raw_kernel": ("slice_raw_kernel",),
+    "chain_walk_marked": ("chain_walk_kernel",),
+    "sphere_segment": ("sphere_score_kernel", "sphere_fit_kernel",
+                       "sphere_sigma_kernel"),
+    "sphere_segment.score": ("sphere_score_kernel",),
+    "sphere_segment.fit": ("sphere_fit_kernel",),
+    "sphere_segment.sigma": ("sphere_sigma_kernel",),
+}
 
 
 def _ranged(name, fn):
@@ -72,7 +92,7 @@ def _busy_ms(prof):
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.name not in STAGES
+        and e.name not in RANGES
     )
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -126,18 +146,14 @@ def main():
         walls.append((time.perf_counter() - t0) * 1e3)
     print("unprofiled batch ms:", ", ".join(f"{w:.1f}" for w in walls))
 
-    from shoulder_tpu_torch.ops import chain_walk, slicing
+    from shoulder_tpu_torch.utils import bench
 
-    def port_launches():
-        return (slicing.launch_count + slicing.raw_launch_count
-                + chain_walk.launch_count)
-
-    port0 = port_launches()
+    port0 = bench.port_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
-    port = port_launches() - port0
+    port = bench.port_launches() - port0
     busy = _busy_ms(prof)
     print(f"profiled batch of {args.batch}: wall {wall:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
@@ -145,22 +161,20 @@ def main():
     avgs = prof.key_averages()
     kernels = sorted((e for e in avgs
                       if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.key not in STAGES),
+                      and e.key not in RANGES),
                      key=lambda e: -e.self_device_time_total)
     # the library's kernels are not tied to their host range (docstring):
-    # their device time is taken by kernel name
-    by_name = {stage: sum(e.self_device_time_total for e in kernels
-                          if f"::{kernel}" in e.key)
-               for stage, kernel in (("slice_stack_kernel", "slice_stack_kernel"),
-                                     ("slice_raw_kernel", "slice_raw_kernel"),
-                                     ("chain_walk_marked", "chain_walk_kernel"))}
+    # their device time is added to their range's by kernel name
+    own_us = {stage: sum(e.self_device_time_total for e in kernels
+                         if any(f"::{k}" in e.key for k in names))
+              for stage, names in OWN_KERNELS.items()}
     print("\nstage ranges (per batch): calls, host ms, kernel ms")
-    for e in sorted((e for e in avgs if e.key in STAGES
+    for e in sorted((e for e in avgs if e.key in RANGES
                      and e.cpu_time_total > 0),
                     key=lambda e: -e.cpu_time_total):
-        dev_us = by_name.get(e.key, e.device_time_total)
+        dev_us = e.device_time_total + own_us.get(e.key, 0.0)
         print(f"  {e.key:22s} {e.count:5d} {e.cpu_time_total / 1e3:9.1f} "
-              f"{dev_us / 1e3:9.1f}")
+              f"{dev_us / 1e3:9.2f}")
     total_launch = sum(e.count for e in kernels)
     print(f"\ndevice ops: {total_launch} launches, "
           f"{sum(e.self_device_time_total for e in kernels) / 1e3:.1f} ms; "
@@ -170,9 +184,8 @@ def main():
               f"{e.key[:90]}")
     print("the port's own kernels (csrc/), as the trace names them:")
     for e in kernels:
-        if any(name in e.key for name in ("slice_stack_kernel",
-                                          "slice_raw_kernel",
-                                          "chain_walk_kernel")):
+        if any(f"::{k}" in e.key for names in OWN_KERNELS.values()
+               for k in names):
             print(f"  {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  "
                   f"{e.key[:90]}")
     syncs = {e.key: e.count for e in avgs if e.key in (
