@@ -28,6 +28,7 @@ from shoulder_tpu_torch.models import forest
 from shoulder_tpu_torch.pipeline import batch as batch_mod
 from shoulder_tpu_torch.pipeline.landmarks import compute_landmarks
 from shoulder_tpu_torch.utils import geometry as geom
+from shoulder_tpu_torch.utils import trace
 
 
 def _np(x):
@@ -314,26 +315,33 @@ class ProximalHumerus(Bone):
         landmark access.  The default stays lazy: the first access
         computes every landmark at once.  ``device``: where the landmarks
         and slice views run (raises when it names an absent card)."""
-        self._device = _device(device)
-        self._cfg = config
-        self._tfrm = Transform()
-        self.transform = self._tfrm.matrix
-        self._spec = ingest.load_bone(stl_file, proximal=self._proximal,
-                                      config=config)
-        self.stl_file = Path(stl_file)
-        self._mesh_ct = Mesh(self._spec.vertices_raw, self._spec.faces_raw,
-                             self._spec.neighbors_raw)
-        self.mesh = self._mesh_ct.copy()
-        self._lm_cache = None
-        self._param_overrides = {}
+        with trace.span("humerus.init"):
+            self._device = _device(device)
+            self._cfg = config
+            self._tfrm = Transform()
+            self.transform = self._tfrm.matrix
+            with trace.span("humerus.load"):
+                self._spec = ingest.load_bone(
+                    stl_file, proximal=self._proximal, config=config)
+                self.stl_file = Path(stl_file)
+                self._mesh_ct = Mesh(self._spec.vertices_raw,
+                                     self._spec.faces_raw,
+                                     self._spec.neighbors_raw)
+                self.mesh = self._mesh_ct.copy()
+            self._lm_cache = None
+            self._param_overrides = {}
+            self._views()
+            if validate:
+                self._validate_landmarks()
 
+    def _views(self) -> None:
+        """The landmark views (a subclass adds its own)."""
         self.canal = Canal(self, "Canal Axis")
         self.surgical_neck = SurgicalNeck(self, "Surgical Neck")
         self.bicipital_groove = DeepGroove(self, "Bicipital Groove")
         self.anatomic_neck = AnatomicNeck(self, "Anatomic Neck")
-        if validate and self._proximal:
-            self._validate_landmarks()
 
+    @trace.spanned("humerus.validate")
     def _validate_landmarks(self) -> None:
         """Force the landmark program and fail fast on degenerate output."""
         lm = self._landmarks()
@@ -373,40 +381,45 @@ class ProximalHumerus(Bone):
     # ------------------------------------------------------------- compute
     def _landmarks(self) -> dict:
         if self._lm_cache is None:
-            bt = batch_mod.bone_tensors(self._spec, self._device)
-            lm = compute_landmarks(
-                bt, forest.load_params(self._device),
-                proximal=self._proximal, cfg=self._effective_cfg())
-            lm = batch_mod.landmarks_to_numpy(lm)
-            d = {}
-            d["canal_points"] = _np(lm.canal_points[np.asarray(lm.canal_mask)])
-            d["canal_axis"] = _np(lm.canal_axis)
-            d["neck_z"] = float(lm.neck_z)
-            d["sn_points"] = _np(lm.sn_points[: int(lm.sn_n)])
-            d["bg_points"] = _np(lm.bg_points)
-            d["bg_axis"] = _np(lm.bg_axis)
-            d["bg_theta"] = float(lm.bg_theta)
-            d["anp_points"] = _np(lm.anp_points[: int(lm.anp_n)])
-            d["anp_plane_point"] = _np(lm.anp_plane_point)
-            d["anp_plane_normal"] = _np(lm.anp_plane_normal)
-            d["anp_axis_normal"] = _np(lm.anp_axis_normal)
-            d["anp_axis_central"] = _np(lm.anp_axis_central)
-            d["te_axis"] = _np(lm.te_axis)
-            d["side"] = "left" if bool(lm.side_is_left) else "right"
-            d["retroversion"] = float(lm.retroversion)
-            d["neckshaft"] = float(lm.neckshaft)
-            d["radius_curvature"] = float(lm.radius_curvature)
-            d["qc"] = {
-                "rf_pos_frac": float(lm.qc_rf_pos_frac),
-                "mask_area_frac": float(lm.qc_mask_area_frac),
-                "sphere_resid_mm": float(lm.qc_sphere_resid),
-                "canal_fit_rms_mm": float(lm.qc_canal_fit_rms),
-                "slice_band_overflow": bool(lm.qc_slice_overflow),
-                "peak_capacity_overflow": bool(lm.qc_peak_overflow),
-                "open_edges": bool(lm.qc_open_edges),
-            }
-            self._lm_cache = d
+            with trace.span("humerus.landmarks"):
+                self._lm_cache = self._compute_landmarks()
         return self._lm_cache
+
+    def _compute_landmarks(self) -> dict:
+        """Every landmark of the bone, on its device, as host numpy."""
+        bt = batch_mod.bone_tensors(self._spec, self._device)
+        lm = compute_landmarks(
+            bt, forest.load_params(self._device),
+            proximal=self._proximal, cfg=self._effective_cfg())
+        lm = batch_mod.landmarks_to_numpy(lm)
+        d = {}
+        d["canal_points"] = _np(lm.canal_points[np.asarray(lm.canal_mask)])
+        d["canal_axis"] = _np(lm.canal_axis)
+        d["neck_z"] = float(lm.neck_z)
+        d["sn_points"] = _np(lm.sn_points[: int(lm.sn_n)])
+        d["bg_points"] = _np(lm.bg_points)
+        d["bg_axis"] = _np(lm.bg_axis)
+        d["bg_theta"] = float(lm.bg_theta)
+        d["anp_points"] = _np(lm.anp_points[: int(lm.anp_n)])
+        d["anp_plane_point"] = _np(lm.anp_plane_point)
+        d["anp_plane_normal"] = _np(lm.anp_plane_normal)
+        d["anp_axis_normal"] = _np(lm.anp_axis_normal)
+        d["anp_axis_central"] = _np(lm.anp_axis_central)
+        d["te_axis"] = _np(lm.te_axis)
+        d["side"] = "left" if bool(lm.side_is_left) else "right"
+        d["retroversion"] = float(lm.retroversion)
+        d["neckshaft"] = float(lm.neckshaft)
+        d["radius_curvature"] = float(lm.radius_curvature)
+        d["qc"] = {
+            "rf_pos_frac": float(lm.qc_rf_pos_frac),
+            "mask_area_frac": float(lm.qc_mask_area_frac),
+            "sphere_resid_mm": float(lm.qc_sphere_resid),
+            "canal_fit_rms_mm": float(lm.qc_canal_fit_rms),
+            "slice_band_overflow": bool(lm.qc_slice_overflow),
+            "peak_capacity_overflow": bool(lm.qc_peak_overflow),
+            "open_edges": bool(lm.qc_open_edges),
+        }
+        return d
 
     # ------------------------------------------------------ slice access
     @property
@@ -448,6 +461,7 @@ class ProximalHumerus(Bone):
         return self._landmarks()["qc"]
 
     # --------------------------------------------------------------- csys
+    @trace.spanned("humerus.csys")
     def apply_csys_canal_articular(self) -> np.ndarray:
         lm = self._landmarks()
         self.canal.axis()
@@ -461,6 +475,7 @@ class ProximalHumerus(Bone):
         self.transform = self._tfrm.matrix
         return self.transform
 
+    @trace.spanned("humerus.csys")
     def apply_csys_obb(self) -> np.ndarray:
         self._tfrm.matrix = np.asarray(self._spec.obb_transform)
         self._update_landmark_data()
@@ -468,6 +483,7 @@ class ProximalHumerus(Bone):
         self.transform = self._tfrm.matrix
         return self.transform
 
+    @trace.spanned("humerus.csys")
     def apply_csys_ct(self) -> np.ndarray:
         self._tfrm.reset()
         self._update_landmark_data()
@@ -475,6 +491,7 @@ class ProximalHumerus(Bone):
         self.transform = self._tfrm.matrix
         return self.transform
 
+    @trace.spanned("humerus.csys")
     def apply_csys_custom(self, transform, from_ct=True) -> np.ndarray:
         if from_ct:
             self._tfrm.matrix = transform
@@ -501,16 +518,12 @@ class Humerus(ProximalHumerus):
 
     _proximal = False
 
-    def __init__(self, stl_file,
-                 config: cfg_mod.PipelineConfig = cfg_mod.DEFAULT_CONFIG,
-                 validate: bool = False, device="cuda"):
-        super().__init__(stl_file, config, device=device)
+    def _views(self) -> None:
+        super()._views()
         # the published API spelling
         self.trans_epiconylar = TransEpicondylar(
             self, "Transverse Epicondylar Axis"
         )
-        if validate:
-            self._validate_landmarks()
 
     @property
     def distal_slices(self):
@@ -526,6 +539,7 @@ class Humerus(ProximalHumerus):
     def retroversion(self) -> float:
         return self._landmarks()["retroversion"]
 
+    @trace.spanned("humerus.csys")
     def apply_csys_canal_transepiconylar(self) -> np.ndarray:
         lm = self._landmarks()
         self.canal.axis()

@@ -13,6 +13,7 @@ reads back only the SUMMARY_FIELDS, in one copy per shard.
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from shoulder_tpu_torch.utils import trace
 
 # the per-bone result dict below reads only these Landmarks fields
 SUMMARY_FIELDS = (
@@ -42,8 +44,16 @@ def _prep_chunk(paths, proximal, config, batch_n, pin):
     specs = [
         ingest.load_bone(p, proximal=proximal, config=config) for p in paths
     ]
+    trace.count("cohort.bones_ingested", len(specs))
     padded = specs + [specs[-1]] * (batch_n - len(specs))
     return specs, B.stack_host(padded, pin=pin)
+
+
+def _prefetch(request, *args):
+    """`_prep_chunk` in the worker as the span `cohort.prefetch` of the
+    chunk's request: (the span's id, its result)."""
+    with trace.span("cohort.prefetch", request=request) as span_id:
+        return span_id, _prep_chunk(*args)
 
 
 def _summary(lms, n_real: int) -> dict:
@@ -106,20 +116,30 @@ def process_cohort(
         for i in range(0, len(stl_paths), batch_size)
     ]
     specs, sums = [], []
+    # one request per chunk: its prefetch in the worker, the main thread's
+    # wait for it (caused by that prefetch; its time also in the always-on
+    # counter cohort.wait_ns), its batch and its read-back
+    requests = [trace.new_request() for _ in path_chunks]
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(_prep_chunk, path_chunks[0], proximal, config,
-                        batch_size, pin)
+        fut = ex.submit(_prefetch, requests[0], path_chunks[0], proximal,
+                        config, batch_size, pin)
         for ci, paths in enumerate(path_chunks):
-            chunk_specs, host = fut.result()
+            with trace.span("cohort.wait", request=requests[ci]):
+                t0 = time.perf_counter_ns()
+                prefetch_id, (chunk_specs, host) = fut.result()
+                trace.count("cohort.wait_ns", time.perf_counter_ns() - t0)
+                trace.caused_by(prefetch_id)
             if ci + 1 < len(path_chunks):
                 # the next batch's ingest runs while the device runs this one
-                fut = ex.submit(_prep_chunk, path_chunks[ci + 1], proximal,
-                                config, batch_size, pin)
+                fut = ex.submit(_prefetch, requests[ci + 1],
+                                path_chunks[ci + 1], proximal, config,
+                                batch_size, pin)
             # `host` stays referenced until the readback below has
             # synchronized, so its pinned pages outlive the async copy
-            sums.append(_summary(
-                sharded(pmesh.shard_bones(host, device_mesh)),
-                len(chunk_specs)))
+            with trace.span("cohort.batch", request=requests[ci]):
+                lms = sharded(pmesh.shard_bones(host, device_mesh))
+            with trace.span("cohort.summary", request=requests[ci]):
+                sums.append(_summary(lms, len(chunk_specs)))
             specs.extend(chunk_specs)
 
     lm = {f: np.concatenate([s[f] for s in sums]) for f in SUMMARY_FIELDS}

@@ -23,6 +23,7 @@ import numpy as np
 from scipy.spatial import ConvexHull
 
 from shoulder_tpu_torch.io import native
+from shoulder_tpu_torch.utils import trace
 
 
 def _min_area_rect_2d(pts2d: np.ndarray):
@@ -137,6 +138,7 @@ def _to_obb(axes, lo, hi):
     return to_obb, extents
 
 
+@trace.spanned("ingest.obb")
 def oriented_bounds(vertices: np.ndarray):
     """Minimum-volume OBB (native search).
 

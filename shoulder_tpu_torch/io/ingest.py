@@ -29,6 +29,7 @@ from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from shoulder_tpu_torch.host import obb as obb_host
 from shoulder_tpu_torch.host import slicing_np
 from shoulder_tpu_torch.io import stl
+from shoulder_tpu_torch.utils import trace
 
 _FLIP = np.diag([-1.0, 1.0, -1.0, 1.0])
 
@@ -70,6 +71,7 @@ def _pad(arr, n, fill):
     return out
 
 
+@trace.spanned("ingest.presort")
 def _presort_faces(verts_p, faces_p, neighbors_p, to_obb):
     """Reorder padded faces by OBB-frame z_min (lexicographic with the
     original face index as tie-break — matching the device kernel's
@@ -129,6 +131,7 @@ def _consecutive(arr):
     )
 
 
+@trace.spanned("ingest.head")
 def _head_end(verts, faces, neighbors, z_min, z_max, proximal, config):
     """(flip, cutoff_pcts): whether the humeral head lies at -z in the OBB
     frame (numpy cross-sections of the mesh, host/slicing_np.py), and the
@@ -180,6 +183,7 @@ def load_bone(
     )
 
 
+@trace.spanned("ingest.spec")
 def spec_from_arrays(
     name: str,
     verts_ct,

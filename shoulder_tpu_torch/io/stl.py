@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from shoulder_tpu_torch.io import native
+from shoulder_tpu_torch.utils import trace
 
 
 def _parse_binary(data: bytes):
@@ -145,6 +146,7 @@ def load_indexed_numpy(path, warn_not_watertight: bool = True):
     return vertices, faces, neighbors, watertight
 
 
+@trace.spanned("ingest.read_weld")
 def load_indexed(path, warn_not_watertight: bool = True):
     """Load an STL into (vertices, faces, neighbors, watertight).
 

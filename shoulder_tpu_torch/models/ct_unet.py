@@ -34,6 +34,7 @@ from torch import nn
 
 from shoulder_tpu_torch.models import convert
 from shoulder_tpu_torch.models import unet as unet_mod
+from shoulder_tpu_torch.utils import trace
 
 DEFAULT_NPZ = Path(__file__).resolve().parent / "params" / "ct_unet.npz"
 FEATURES = (8, 16, 32)
@@ -133,6 +134,7 @@ def _load_model(device: str, npz_path: str, _size: int,
 
 
 @torch.no_grad()
+@trace.spanned("ct.unet3d")
 def apply_volume(model: CTUNet, volume):
     """(D, H, W) HU volume tensor -> (D, H, W) float32 bone logits on the
     volume's device: zero-pad each axis to a multiple of 4, crop back."""

@@ -18,23 +18,14 @@ csrc/sphere_score.cu and csrc/sphere_fit.cu on the card.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 
 from shoulder_tpu_torch.ops import sphere
-from shoulder_tpu_torch.utils import jax_prng
+from shoulder_tpu_torch.utils import jax_prng, trace
 
 N_HYP = 128
-
-
-def _range(name: str):
-    """A profiler range `name` while a profiler records, else nothing (so
-    an unprofiled call dispatches no range op)."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def ransac_indices(top_n: int, device, seed: int = 17):
@@ -131,7 +122,7 @@ def sphere_segment(
     def solve(mean, normal):
         return sphere.solve(mean, normal, eye4)
 
-    with _range("sphere_segment.score"):
+    with trace.span("sphere_segment.score"):
         # selection-only row prior: scores decay to 0.2x over rows
         # 0.45R..0.75R
         row_of = torch.arange(r * c, device=dev) // c
@@ -151,7 +142,7 @@ def sphere_segment(
         h_rad = torch.sqrt(torch.clamp(
             sol[..., 3] + torch.sum(h_cen**2, dim=-1), min=1e-9))
     # the top-rows least squares and the CNN proposal compete as two more
-    with _range("sphere_segment.fit"):
+    with trace.span("sphere_segment.fit"):
         w_heur = (row_of < int(init_top_rows * r)).to(dt).expand(
             lead + (r * c,))
         heur = sphere.fit_moments(pts, w_heur)
@@ -170,7 +161,7 @@ def sphere_segment(
     def pick_best(score_scale):
         """Best hypothesis under the row-weighted Tukey score; score_scale
         a number or one per bone."""
-        with _range("sphere_segment.score"):
+        with trace.span("sphere_segment.score"):
             ok = sphere.pickable(h_rad, h_cen)
             scores = sphere.scores(pts, w_row, h_rad, h_cen, score_scale)
             best = torch.argmax(torch.where(ok, scores, -1.0), dim=-1,
@@ -181,7 +172,7 @@ def sphere_segment(
 
     def basin_sigma(radius, center):
         """Tukey-weighted RMS residual at the fixed 0.5 * tol scale."""
-        with _range("sphere_segment.sigma"):
+        with trace.span("sphere_segment.sigma"):
             w_sum, w_sres2 = sphere.sigma_sums(pts, radius, center,
                                                0.5 * tol_mm)
             sigma = torch.sqrt(w_sres2 / torch.clamp(w_sum, min=1.0))
@@ -194,16 +185,16 @@ def sphere_segment(
     score_b = torch.clamp(4.5 * sigma_a, min=0.35 * tol_mm)
     irls_b = torch.clamp(4.5 * sigma_a, min=0.5 * tol_mm)
     radius, center = pick_best(score_b)
-    with _range("sphere_segment.fit"):
+    with trace.span("sphere_segment.fit"):
         # Tukey IRLS; a pass whose weights sum below MIN_WEIGHT takes the
         # top-rows weights w_heur
         for _ in range(iters):
             radius, center = solve(*sphere.irls_moments(
                 pts, radius, center, irls_b, w_heur, heur))
-    with _range("sphere_segment.sigma"):
+    with trace.span("sphere_segment.sigma"):
         sres = sphere.distance(pts, center) - radius[..., None]
     sigma = basin_sigma(radius, center)
-    with _range("sphere_segment.rim"):
+    with trace.span("sphere_segment.rim"):
         resid = torch.abs(sres)
 
         neg_thr = torch.clamp(3.0 * sigma, min=0.4 * tol_mm)[..., None, None]

@@ -25,7 +25,8 @@ merge included.
 `chain_walk_marked` runs the plain PyTorch walk (the serial walk, one
 step for every row at once) for a tensor on the CPU and the CUDA kernel
 for a tensor on the card; it never falls back from one to the other.
-`launch_count` counts kernel launches.
+The recorder's counter `launches.chain_walk` (utils/trace.py) counts
+kernel launches.
 
 The fused kernel walks by list ranking instead (walk.cuh's `walk_ranked`,
 the whole block at once, over the predecessor map), which gives the same
@@ -38,8 +39,7 @@ from __future__ import annotations
 import torch
 
 from shoulder_tpu_torch.ops import kernels
-
-launch_count = 0  # kernel launches since the caller last reset it
+from shoulder_tpu_torch.utils import trace
 
 
 def chain_walk_marked(succ: torch.Tensor, crossed: torch.Tensor):
@@ -76,8 +76,7 @@ def chain_walk_marked(succ: torch.Tensor, crossed: torch.Tensor):
     )
     if rc != 0:
         raise RuntimeError(f"chain_walk kernel launch failed: CUDA error {rc}")
-    global launch_count
-    launch_count += 1
+    trace.count("launches.chain_walk")
     return order, n, is_start
 
 

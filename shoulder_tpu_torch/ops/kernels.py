@@ -22,6 +22,8 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from shoulder_tpu_torch.utils import trace
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -61,31 +63,34 @@ def _run(cmd: list[str], what: str) -> str:
 def build(src_dir: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """Compile the sources of `src_dir` into one shared library in
     `build_dir` (once per build key) and return its path.  A failed
-    build raises."""
+    build raises.  Each build counts one `kernels.builds` (utils/trace.py)
+    and is one span `kernels.build`."""
     so = build_dir / f"kernels_{build_key(src_dir)}.so"
     if so.exists():
         return so
-    build_dir.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix=so.stem + ".", dir=build_dir))
-    try:
-        sources = sorted(src_dir.glob("*.cu"))
-        objs = [work / (src.stem + ".o") for src in sources]
+    trace.count("kernels.builds")
+    with trace.span("kernels.build"):
+        build_dir.mkdir(parents=True, exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix=so.stem + ".", dir=build_dir))
+        try:
+            sources = sorted(src_dir.glob("*.cu"))
+            objs = [work / (src.stem + ".o") for src in sources]
 
-        def compile_one(src, obj):
-            return _run([_nvcc(), *COMPILE_FLAGS, "-o", str(obj), str(src)],
-                        f"compile {src.name}")
+            def compile_one(src, obj):
+                return _run([_nvcc(), *COMPILE_FLAGS, "-o", str(obj),
+                             str(src)], f"compile {src.name}")
 
-        # one nvcc per source, all started together
-        with ThreadPoolExecutor(max(1, len(sources))) as pool:
-            logs = list(pool.map(compile_one, sources, objs))
-        tmp = work / so.name
-        logs.append(_run([_nvcc(), *LINK_FLAGS, "-o", str(tmp),
-                          *map(str, objs)], "link the kernels"))
-        so.with_suffix(".log").write_text("\n".join(logs))
-        os.replace(tmp, so)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return so
+            # one nvcc per source, all started together
+            with ThreadPoolExecutor(max(1, len(sources))) as pool:
+                logs = list(pool.map(compile_one, sources, objs))
+            tmp = work / so.name
+            logs.append(_run([_nvcc(), *LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)], "link the kernels"))
+            so.with_suffix(".log").write_text("\n".join(logs))
+            os.replace(tmp, so)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return so
 
 
 def build_log() -> str:

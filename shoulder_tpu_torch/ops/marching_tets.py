@@ -30,6 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from shoulder_tpu_torch.utils import trace
+
 # Kuhn subdivision: 6 monotone corner paths (0,0,0) -> (1,1,1).
 # Corner offsets per tet: v0=(0,0,0), v1=e[p0], v2=e[p0]+e[p1], v3=(1,1,1).
 _PERMS = [(0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0)]
@@ -98,6 +100,7 @@ def _take(x, idx):
     return x[a, idx]
 
 
+@trace.spanned("ct.marching_tets")
 def marching_tets(
     volume,
     iso: float,

@@ -47,6 +47,7 @@ import torch
 
 from shoulder_tpu_torch.ops import chain_walk, kernels
 from shoulder_tpu_torch.ops import signal
+from shoulder_tpu_torch.utils import trace
 
 _BIG = torch.iinfo(torch.int32).max
 # the slice-stack kernel's limits: its block takes 64 k + 2 band + 20 bytes
@@ -67,8 +68,6 @@ STAGES = ("window", "compaction", "segments", "injectivity", "walk",
 # two halves (the counts, then the sums), and the output write
 RAW_STAGES = ("window", "compaction", "segments", "injectivity", "labels",
               "counts", "sums", "pick", "min_orig", "ranks", "write")
-launch_count = 0  # slice-stack kernel launches since the caller reset it
-raw_launch_count = 0  # raw-loop kernel launches since the caller reset it
 
 
 class SliceStack(NamedTuple):
@@ -538,9 +537,8 @@ def slice_stack_kernel(sg: SortedGeom, zs, interp_num: int, band: int,
     )
     if rc != 0:
         raise RuntimeError(f"slice_stack kernel launch failed: CUDA error {rc}")
-    global launch_count
     if zs.numel():  # no planes, no launch
-        launch_count += 1
+        trace.count("launches.slice_stack")
     return SliceStack(contours, centroids, areas, total_areas, zs, overflow,
                       open_edges)
 
@@ -730,9 +728,8 @@ def slice_raw_kernel(sg: SortedGeom, z, band: int, max_chain: int,
     )
     if rc != 0:
         raise RuntimeError(f"slice_raw kernel launch failed: CUDA error {rc}")
-    global raw_launch_count
     if n_bones:  # no bones, no launch
-        raw_launch_count += 1
+        trace.count("launches.slice_raw")
     return RawLoop(points, n, area, centroid), overflow
 
 

@@ -9,8 +9,8 @@ segmentation is bit for bit what it was.  On CUDA tensors it launches
 its kernel from the port's library (ops/kernels.py) or raises:
 csrc/sphere_score.cu (`sphere_score_kernel`, one launch per pick) and
 csrc/sphere_fit.cu (`sphere_fit_kernel`, two launches per fit, one per
-basin sigma).  `score_launch_count` and `fit_launch_count` count the
-launches.
+basin sigma).  The recorder's counters `launches.sphere_score` and
+`launches.sphere_fit` (utils/trace.py) count the launches.
 
 Each kernel sums in one fixed order that depends on the number of points
 alone (no float atomics), so a bone's results do not depend on the batch
@@ -25,10 +25,7 @@ import math
 import torch
 
 from shoulder_tpu_torch.ops import kernels
-from shoulder_tpu_torch.utils import fits
-
-score_launch_count = 0  # score kernel launches since the caller reset it
-fit_launch_count = 0    # fit kernel launches (each pass one)
+from shoulder_tpu_torch.utils import fits, trace
 
 # the weights of a fit pass (csrc/sphere_fit.cu): given, the IRLS Tukey
 # weights from a sphere, or the basin sigma's
@@ -265,9 +262,8 @@ def sphere_score_kernel(pts, w_row, h_rad, h_cen, scale, lib=None):
     if rc != 0:
         raise RuntimeError(f"sphere_score kernel launch failed: CUDA error "
                            f"{rc}")
-    global score_launch_count
     if n_bones and n_hyp:  # nothing to score, no launch
-        score_launch_count += 1
+        trace.count("launches.sphere_score")
     return out
 
 
@@ -319,7 +315,6 @@ def sphere_fit_kernel(pts, weights, w=None, radius=None, center=None,
         mean = torch.empty(lead + (3,), **f32)
         normal = torch.empty(lead + (4, 5), **f32)
     done = _done(dev, n_bones)
-    global fit_launch_count
     for n_pass in passes:
         rc = lib.sphere_fit_launch(
             pts.data_ptr(), w_ptr, w_stride, c_ptr, r_ptr, scale_ptr,
@@ -332,5 +327,5 @@ def sphere_fit_kernel(pts, weights, w=None, radius=None, center=None,
             raise RuntimeError(f"sphere_fit kernel launch (pass {n_pass}) "
                                f"failed: CUDA error {rc}")
         if n_bones:  # no bones, no launch
-            fit_launch_count += 1
+            trace.count("launches.sphere_fit")
     return sums, mean, normal

@@ -25,6 +25,7 @@ from shoulder_tpu_torch.pipeline.landmarks import (
     Landmarks,
     landmarks_batch,
 )
+from shoulder_tpu_torch.utils import trace
 
 
 def _host_arrays(spec: BoneSpec) -> list[np.ndarray]:
@@ -50,6 +51,7 @@ def bone_tensors(spec: BoneSpec, device) -> BoneTensors:
                          for a in _host_arrays(spec)))
 
 
+@trace.spanned("batch.stack")
 def stack_bones(specs: Sequence[BoneSpec], device) -> BoneTensors:
     """Stack BoneSpecs into a leading batch dimension on `device`: one
     host-side stack and one copy per field."""
@@ -93,6 +95,7 @@ def compute_landmarks_batch(
                            chunk=chunk, seg_model=seg_model)
 
 
+@trace.spanned("batch.readback")
 def landmarks_to_numpy(lm: Landmarks) -> Landmarks:
     """Landmarks as numpy arrays: one device-to-host copy per field, made
     after the whole bone is computed."""

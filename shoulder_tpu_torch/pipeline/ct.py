@@ -33,6 +33,7 @@ from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from shoulder_tpu_torch.io import ingest as ingest_mod
 from shoulder_tpu_torch.io import native
 from shoulder_tpu_torch.ops import marching_tets
+from shoulder_tpu_torch.utils import trace
 
 
 def synth_ct_volume(
@@ -114,7 +115,9 @@ def segment_volume(volume, method: str = "threshold", iso_hu: float = 300.0,
     """
     from shoulder_tpu_torch.bone import _device
 
-    vol = torch.as_tensor(volume, dtype=torch.float32, device=_device(device))
+    with trace.span("ct.upload"):
+        vol = torch.as_tensor(volume, dtype=torch.float32,
+                              device=_device(device))
     if method == "threshold":
         return vol, iso_hu
     if method == "unet":
@@ -148,9 +151,11 @@ def volume_to_spec(
         spacing=tuple(float(s) for s in spacing),
         max_tris=max_tris,
     )
-    n = int(soup.count)
-    verts, faces, neighbors, watertight = native.weld_soup(
-        soup.triangles[:n].cpu().numpy())
+    with trace.span("ct.download"):
+        n = int(soup.count)
+        tri = soup.triangles[:n].cpu().numpy()
+    with trace.span("ct.weld"):
+        verts, faces, neighbors, watertight = native.weld_soup(tri)
     return ingest_mod.spec_from_arrays(
         "ct_volume", verts, faces, neighbors, watertight, config=config
     )

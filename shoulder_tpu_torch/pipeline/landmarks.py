@@ -37,6 +37,7 @@ from shoulder_tpu_torch.ops import signal as sig
 from shoulder_tpu_torch.ops import slicing
 from shoulder_tpu_torch.utils import fits
 from shoulder_tpu_torch.utils import geometry as geom
+from shoulder_tpu_torch.utils import trace
 
 
 class BoneTensors(NamedTuple):
@@ -113,6 +114,7 @@ def _pairs(a, b):
 
 
 # --------------------------------------------------------------------- D
+@trace.spanned("landmarks.canal")
 def _canal(stack: slicing.SliceStack, bone: BoneTensors, proximal: bool,
            cfg: PipelineConfig):
     n_bones, n = stack.zs.shape
@@ -155,6 +157,7 @@ def _canal(stack: slicing.SliceStack, bone: BoneTensors, proximal: bool,
 _NECK_MIN_K = 512  # the JAX package's slots for the surgical-neck plane
 
 
+@trace.spanned("landmarks.surgical_neck")
 def _surgical_neck(stack, bone: BoneTensors, proximal: bool,
                    cfg: PipelineConfig, max_chain: int, sg):
     n = stack.zs.shape[1]
@@ -195,6 +198,7 @@ def _to_polar_start(contour, center):
 
 
 # --------------------------------------------------------------------- E
+@trace.spanned("landmarks.groove")
 def _groove(prox: slicing.SliceStack, bone: BoneTensors, canal_axis_ct,
             rf: ForestParams, cfg: PipelineConfig):
     n_bones, n = prox.zs.shape
@@ -208,109 +212,117 @@ def _groove(prox: slicing.SliceStack, bone: BoneTensors, canal_axis_ct,
     dev = zs.device
     ar = torch.arange(interp, device=dev)
 
-    theta, r = _to_polar_start(contours, cents)             # (B,S,N) each
-    r0 = r - r.mean(dim=-1, keepdim=True)
+    with trace.span("groove.peaks"):
+        theta, r = _to_polar_start(contours, cents)             # (B,S,N) each
+        r0 = r - r.mean(dim=-1, keepdim=True)
 
-    # per-slice peaks of the negated, smoothed radius rolled to its minimum
-    radius = sig.savgol_filter(-r0, cfg.groove_savgol_window,
-                               cfg.groove_savgol_polyorder)
-    rmin = torch.argmin(radius, dim=-1, keepdim=True)
-    rolled = radius.gather(-1, (ar + rmin) % interp)
-    p = sig.find_peaks(
-        rolled.reshape(n_bones * S, interp), cfg.groove_peak_height,
-        cfg.groove_peak_prominence, cfg.groove_peak_width,
-        max_peaks=cfg.max_peaks_per_slice, cand_cap=cfg.groove_cand_cap,
-    )
-    p = {key: v.reshape((n_bones, S) + v.shape[1:]) for key, v in p.items()}
-    idx = ((p["idx"] + rmin) % interp)[..., :K]
-    valid = p["valid"][..., :K]
-    prom, widths, whs = (p["prominences"][..., :K], p["widths"][..., :K],
-                         p["width_heights"][..., :K])
-    n_pk = torch.clamp(p["n_peaks"], max=K)
-    peak_overflow = p["overflow"].any(dim=-1)
+        # per-slice peaks of the negated, smoothed radius rolled to its minimum
+        radius = sig.savgol_filter(-r0, cfg.groove_savgol_window,
+                                   cfg.groove_savgol_polyorder)
+        rmin = torch.argmin(radius, dim=-1, keepdim=True)
+        rolled = radius.gather(-1, (ar + rmin) % interp)
+        p = sig.find_peaks(
+            rolled.reshape(n_bones * S, interp), cfg.groove_peak_height,
+            cfg.groove_peak_prominence, cfg.groove_peak_width,
+            max_peaks=cfg.max_peaks_per_slice, cand_cap=cfg.groove_cand_cap,
+        )
+        p = {key: v.reshape((n_bones, S) + v.shape[1:])
+             for key, v in p.items()}
+        idx = ((p["idx"] + rmin) % interp)[..., :K]
+        valid = p["valid"][..., :K]
+        prom, widths, whs = (p["prominences"][..., :K], p["widths"][..., :K],
+                             p["width_heights"][..., :K])
+        n_pk = torch.clamp(p["n_peaks"], max=K)
+        peak_overflow = p["overflow"].any(dim=-1)
 
-    pk_theta = theta.gather(-1, idx)
-    pk_radius = r.gather(-1, idx)
+        pk_theta = theta.gather(-1, idx)
+        pk_radius = r.gather(-1, idx)
 
-    # nearest / next-nearest wrapped angular gaps among a slice's peaks,
-    # excluding gaps that round to 0 at 2 decimals
-    dth = pk_theta[..., :, None] - pk_theta[..., None, :]
-    gap = torch.abs(torch.atan2(torch.sin(dth), torch.cos(dth)))
-    ok = valid[..., :, None] & valid[..., None, :]
-    ok = ok & (torch.round(gap, decimals=2) != 0.0)
-    g = torch.sort(torch.where(ok, gap, torch.inf), dim=-1).values
-    near = torch.where(torch.isfinite(g[..., 0]), g[..., 0], 0.0)
-    nextn = torch.where(torch.isfinite(g[..., 1]), g[..., 1], 0.0)
-    near = torch.where(n_pk[..., None] <= 1, 0.0, near)
-    nextn = torch.where(n_pk[..., None] <= 2, 0.0, nextn)
+    with trace.span("groove.forest"):
+        # nearest / next-nearest wrapped angular gaps among a slice's peaks,
+        # excluding gaps that round to 0 at 2 decimals
+        dth = pk_theta[..., :, None] - pk_theta[..., None, :]
+        gap = torch.abs(torch.atan2(torch.sin(dth), torch.cos(dth)))
+        ok = valid[..., :, None] & valid[..., None, :]
+        ok = ok & (torch.round(gap, decimals=2) != 0.0)
+        g = torch.sort(torch.where(ok, gap, torch.inf), dim=-1).values
+        near = torch.where(torch.isfinite(g[..., 0]), g[..., 0], 0.0)
+        nextn = torch.where(torch.isfinite(g[..., 1]), g[..., 1], 0.0)
+        near = torch.where(n_pk[..., None] <= 1, 0.0, near)
+        nextn = torch.where(n_pk[..., None] <= 2, 0.0, nextn)
 
-    # per bone: its own slices' z range
-    z_lo = zs.amin(dim=-1, keepdim=True)
-    z_scale = (zs - z_lo) / (zs.amax(dim=-1, keepdim=True) - z_lo)
-    pk_z = z_scale[..., None].expand(n_bones, S, K)
+        # per bone: its own slices' z range
+        z_lo = zs.amin(dim=-1, keepdim=True)
+        z_scale = (zs - z_lo) / (zs.amax(dim=-1, keepdim=True) - z_lo)
+        pk_z = z_scale[..., None].expand(n_bones, S, K)
 
-    # canal distance feature with the reference's frame quirk: CT-frame
-    # canal direction scaled by the OBB z
-    canal_u = geom.unit_vector(canal_axis_ct[:, 0], canal_axis_ct[:, 1])
-    canal_xy = canal_u[:, None, None, :2] * zs[..., None, None]
-    pk_xy = torch.stack([pk_radius * torch.cos(pk_theta),
-                         pk_radius * torch.sin(pk_theta)], dim=-1)
-    pk_canal_dist = torch.linalg.vector_norm(pk_xy - canal_xy, dim=-1)
-    pk_num = (n_pk / K)[..., None].expand(n_bones, S, K).to(torch.float32)
+        # canal distance feature with the reference's frame quirk: CT-frame
+        # canal direction scaled by the OBB z
+        canal_u = geom.unit_vector(canal_axis_ct[:, 0], canal_axis_ct[:, 1])
+        canal_xy = canal_u[:, None, None, :2] * zs[..., None, None]
+        pk_xy = torch.stack([pk_radius * torch.cos(pk_theta),
+                             pk_radius * torch.sin(pk_theta)], dim=-1)
+        pk_canal_dist = torch.linalg.vector_norm(pk_xy - canal_xy, dim=-1)
+        pk_num = (n_pk / K)[..., None].expand(n_bones, S, K).to(torch.float32)
 
-    feats = torch.stack(
-        [pk_radius, near, nextn, pk_z, prom, widths, whs, pk_canal_dist,
-         pk_num], dim=-1,
-    ).reshape(n_bones, S * K, 9)
-    row_valid = valid.reshape(n_bones, S * K)
+        feats = torch.stack(
+            [pk_radius, near, nextn, pk_z, prom, widths, whs, pk_canal_dist,
+             pk_num], dim=-1,
+        ).reshape(n_bones, S * K, 9)
+        row_valid = valid.reshape(n_bones, S * K)
 
-    # per-bone StandardScaler over the bone's valid rows
-    w = row_valid.to(torch.float32)[..., None]
-    wsum = torch.clamp(w.sum(dim=1), min=1.0)[:, None]
-    mean = torch.sum(feats * w, dim=1, keepdim=True) / wsum
-    var = torch.sum(w * (feats - mean) ** 2, dim=1, keepdim=True) / wsum
-    x = (feats - mean) / torch.sqrt(torch.clamp(var, min=1e-12))
-    x = torch.where(w > 0, x, 0.0)
+        # per-bone StandardScaler over the bone's valid rows
+        w = row_valid.to(torch.float32)[..., None]
+        wsum = torch.clamp(w.sum(dim=1), min=1.0)[:, None]
+        mean = torch.sum(feats * w, dim=1, keepdim=True) / wsum
+        var = torch.sum(w * (feats - mean) ** 2, dim=1, keepdim=True) / wsum
+        x = (feats - mean) / torch.sqrt(torch.clamp(var, min=1e-12))
+        x = torch.where(w > 0, x, 0.0)
 
-    proba = predict_proba(rf, x.reshape(n_bones * S * K, 9))[:, 1]
-    proba = proba.reshape(n_bones, S * K)
+        proba = predict_proba(rf, x.reshape(n_bones * S * K, 9))[:, 1]
+        proba = proba.reshape(n_bones, S * K)
 
-    # linear-kernel KDE over each bone's positive peak angles -> its
-    # groove angle
-    pos = row_valid & (proba > cfg.groove_rf_threshold)
-    kde_w = pos.to(torch.float32)
-    kde_w = torch.where(kde_w.sum(dim=-1, keepdim=True) > 0, kde_w,
-                        row_valid.to(torch.float32) * proba)
-    grid = geom.linspace(-math.pi, math.pi, cfg.groove_kde_bins, device=dev)
-    bg_theta, _ = sig.kde_linear_argmax(pk_theta.reshape(n_bones, S * K),
-                                        kde_w, grid)
+    with trace.span("groove.kde"):
+        # linear-kernel KDE over each bone's positive peak angles -> its
+        # groove angle
+        pos = row_valid & (proba > cfg.groove_rf_threshold)
+        kde_w = pos.to(torch.float32)
+        kde_w = torch.where(kde_w.sum(dim=-1, keepdim=True) > 0, kde_w,
+                            row_valid.to(torch.float32) * proba)
+        grid = geom.linspace(-math.pi, math.pi, cfg.groove_kde_bins,
+                             device=dev)
+        bg_theta, _ = sig.kde_linear_argmax(pk_theta.reshape(n_bones, S * K),
+                                            kde_w, grid)
 
-    # per-slice windowed argmin around bg_theta, cyclic
-    ivar = max(int(round(cfg.groove_deg_window / (360.0 / interp))), 1)
-    esti = torch.clamp((theta < bg_theta[:, None, None]).sum(
-        dim=-1, keepdim=True), max=interp - 1)
-    win = (esti - ivar + torch.arange(2 * ivar, device=dev)) % interp
-    off = torch.argmin(r0.gather(-1, win), dim=-1, keepdim=True)
-    j = (esti - ivar + off) % interp
-    r_j, th_j = r.gather(-1, j)[..., 0], theta.gather(-1, j)[..., 0]
-    bg_xy = torch.stack([r_j * torch.cos(th_j), r_j * torch.sin(th_j)],
-                        dim=-1)
-    bg_xyz = torch.cat([bg_xy + cents, zs[..., None]], dim=-1)
+    with trace.span("groove.argmin"):
+        # per-slice windowed argmin around bg_theta, cyclic
+        ivar = max(int(round(cfg.groove_deg_window / (360.0 / interp))), 1)
+        esti = torch.clamp((theta < bg_theta[:, None, None]).sum(
+            dim=-1, keepdim=True), max=interp - 1)
+        win = (esti - ivar + torch.arange(2 * ivar, device=dev)) % interp
+        off = torch.argmin(r0.gather(-1, win), dim=-1, keepdim=True)
+        j = (esti - ivar + off) % interp
+        r_j, th_j = r.gather(-1, j)[..., 0], theta.gather(-1, j)[..., 0]
+        bg_xy = torch.stack([r_j * torch.cos(th_j), r_j * torch.sin(th_j)],
+                            dim=-1)
+        bg_xyz = torch.cat([bg_xy + cents, zs[..., None]], dim=-1)
 
-    # groove axis: unsigned line fit spanning the points' z extent
-    center, direction = fits.fit_line(bg_xyz)
-    z_dist = (bg_xyz[..., 2].amax(dim=-1) - bg_xyz[..., 2].amin(dim=-1))
-    z_dist = z_dist[:, None]
-    axis_obb = _pairs(center + direction * z_dist / 2.0,
-                      center - direction * z_dist / 2.0)
+        # groove axis: unsigned line fit spanning the points' z extent
+        center, direction = fits.fit_line(bg_xyz)
+        z_dist = (bg_xyz[..., 2].amax(dim=-1) - bg_xyz[..., 2].amin(dim=-1))
+        z_dist = z_dist[:, None]
+        axis_obb = _pairs(center + direction * z_dist / 2.0,
+                          center - direction * z_dist / 2.0)
 
-    bg_points_ct = _to_ct(bg_xyz, bone.obb_transform)
-    bg_axis_ct = _to_ct(axis_obb, bone.obb_transform)
-    rf_pos_frac = pos.sum(dim=-1) / torch.clamp(row_valid.sum(dim=-1), min=1)
+        bg_points_ct = _to_ct(bg_xyz, bone.obb_transform)
+        bg_axis_ct = _to_ct(axis_obb, bone.obb_transform)
+        rf_pos_frac = pos.sum(dim=-1) / torch.clamp(row_valid.sum(dim=-1),
+                                                    min=1)
     return bg_points_ct, bg_axis_ct, bg_theta, rf_pos_frac, peak_overflow
 
 
 # --------------------------------------------------------------------- F
+@trace.spanned("anp.image_points")
 def _anp_image_points(prox: slicing.SliceStack, bg_theta,
                       cfg: PipelineConfig):
     """The anatomic-neck polar images (B, R, N), each normalised over its
@@ -352,6 +364,7 @@ def _anp_image_points(prox: slicing.SliceStack, bg_theta,
     return image, pts
 
 
+@trace.spanned("landmarks.anatomic_neck")
 def _anatomic_neck(prox: slicing.SliceStack, bone: BoneTensors, bg_theta,
                    cfg: PipelineConfig, seg_model=None, hyp_idx=None,
                    out_n: int = 2048):
@@ -361,25 +374,28 @@ def _anatomic_neck(prox: slicing.SliceStack, bone: BoneTensors, bg_theta,
         hyp_idx = segment.ransac_indices(int(0.4 * r) * c, image.device)
     sphere_args = (pts, hyp_idx, cfg.sphere_seg_iters, cfg.sphere_seg_tol_mm,
                    cfg.sphere_seg_init_top_rows)
-    if cfg.segmenter == "unet":
-        # the UNet mask seeds the sphere consensus and supports the final
-        # mask up to sphere_seg_support_tol x tol from the sphere; the
-        # batch's images go through one forward pass
-        unary = unet_mod.segment_image(seg_model, image)
-        unary = segment._longest_cyclic_run_per_row(unary > 0.5).to(image.dtype)
-        mask, _rad, _cen, sph_resid = segment.sphere_segment(
-            *sphere_args, init_mask=unary, support_mask=unary,
-            support_tol_factor=cfg.sphere_seg_support_tol,
-            support_min_disagree=cfg.sphere_seg_support_min_disagree,
-            support_max_disagree=cfg.sphere_seg_support_max_disagree,
-            support_min_recall=cfg.sphere_seg_support_min_recall,
-            support_rescue_max_frac=cfg.sphere_seg_support_rescue_frac,
-        )
-    else:
-        mask, _rad, _cen, sph_resid = segment.sphere_segment(*sphere_args)
+    with trace.span("anp.segment"):
+        if cfg.segmenter == "unet":
+            # the UNet mask seeds the sphere consensus and supports the final
+            # mask up to sphere_seg_support_tol x tol from the sphere; the
+            # batch's images go through one forward pass
+            unary = unet_mod.segment_image(seg_model, image)
+            unary = segment._longest_cyclic_run_per_row(unary > 0.5).to(
+                image.dtype)
+            mask, _rad, _cen, sph_resid = segment.sphere_segment(
+                *sphere_args, init_mask=unary, support_mask=unary,
+                support_tol_factor=cfg.sphere_seg_support_tol,
+                support_min_disagree=cfg.sphere_seg_support_min_disagree,
+                support_max_disagree=cfg.sphere_seg_support_max_disagree,
+                support_min_recall=cfg.sphere_seg_support_min_recall,
+                support_rescue_max_frac=cfg.sphere_seg_support_rescue_frac,
+            )
+        else:
+            mask, _rad, _cen, sph_resid = segment.sphere_segment(*sphere_args)
     return _anp_from_mask(mask, pts, bone, sph_resid, out_n)
 
 
+@trace.spanned("anp.from_mask")
 def _anp_from_mask(mask, pts, bone: BoneTensors, sph_resid,
                    out_n: int = 2048):
     """Rim extraction, plane fit, ellipse recenter, axis rays and radius of
@@ -474,6 +490,7 @@ def _transepicondylar(distal: slicing.SliceStack, bone: BoneTensors,
 
 
 # --------------------------------------------------------------------- H
+@trace.spanned("landmarks.metrics")
 def _metrics(canal_axis_ct, axis_normal_ct, axis_central_ct, te_axis_ct,
              bg_points_ct, proximal: bool):
     tf_central = geom.construct_csys(canal_axis_ct, axis_central_ct)
@@ -497,6 +514,7 @@ def _metrics(canal_axis_ct, axis_normal_ct, axis_central_ct, te_axis_ct,
     return side_is_left, retro, neckshaft
 
 
+@trace.spanned("landmarks.batch")
 def landmarks_batch(
     bones: BoneTensors,
     rf: ForestParams,
@@ -518,27 +536,30 @@ def landmarks_batch(
     if cfg.segmenter == "unet" and seg_model is None:
         seg_model = unet_mod.load_model(bones.verts.device)
 
-    verts_obb = geom.transform_pts(bones.verts, bones.obb_transform)
-    # the z-sorted face geometry depends only on the mesh: once per bone
-    sg = slicing.sorted_geom(verts_obb, bones.faces, bones.neighbors,
-                             bones.face_orig)
+    with trace.span("landmarks.sorted_geom"):
+        verts_obb = geom.transform_pts(bones.verts, bones.obb_transform)
+        # the z-sorted face geometry depends only on the mesh: once per bone
+        sg = slicing.sorted_geom(verts_obb, bones.faces, bones.neighbors,
+                                 bones.face_orig)
 
     def stack(zs, sset):
         return slicing.slice_stack(sg, zs, sset.interp_num, sset.band,
                                    cfg.slice_compact_k, chunk)
 
     # A: full stack (zs descending)
-    full = stack(geom.linspace(cfg.z_inset * bones.z_max,
-                               cfg.z_inset * bones.z_min,
-                               cfg.full.zslice_num), cfg.full)
+    with trace.span("landmarks.full_stack"):
+        full = stack(geom.linspace(cfg.z_inset * bones.z_max,
+                                   cfg.z_inset * bones.z_min,
+                                   cfg.full.zslice_num), cfg.full)
 
     # B: surgical neck
     neck_z, sn_points, sn_n, sn_overflow = _surgical_neck(
         full, bones, proximal, cfg, cfg.max_chain, sg)
 
     # C: proximal stack (head -> each bone's surgical neck)
-    prox = stack(geom.linspace(cfg.z_inset * bones.z_max, neck_z,
-                               cfg.proximal.zslice_num), cfg.proximal)
+    with trace.span("landmarks.proximal_stack"):
+        prox = stack(geom.linspace(cfg.z_inset * bones.z_max, neck_z,
+                                   cfg.proximal.zslice_num), cfg.proximal)
 
     # D: canal
     canal_pts, canal_mask, canal_axis, _canal_obb, canal_rms = _canal(
@@ -562,10 +583,11 @@ def landmarks_batch(
         te_axis = torch.zeros((verts_obb.shape[0], 2, 3),
                               device=verts_obb.device)
     else:
-        distal = stack(geom.linspace(cfg.z_inset * bones.z_min, 0.0,
-                                     cfg.distal.zslice_num), cfg.distal)
-        te_axis = _transepicondylar(distal, bones, canal_axis, axis_central,
-                                    cfg)
+        with trace.span("landmarks.transepicondylar"):
+            distal = stack(geom.linspace(cfg.z_inset * bones.z_min, 0.0,
+                                         cfg.distal.zslice_num), cfg.distal)
+            te_axis = _transepicondylar(distal, bones, canal_axis,
+                                        axis_central, cfg)
         overflow = overflow | distal.overflow.any(dim=-1)
         open_edges = open_edges | distal.open_edges.any(dim=-1)
 

@@ -4,10 +4,10 @@ synchronizing calls, counted the same way by `bench_torch.py` and by
 
 The profiler counts the launch API calls (cudaLaunchKernel and the
 others) but not the launches of the port's own kernels, which go through
-the kernel library, so their wrappers' counts are added.  Synchronizing
-calls are counted under `torch.cuda.set_sync_debug_mode("warn")` on the
-second of two watched runs: the first run so watched in a process counts
-one more.  Both need a CUDA device; keep them out of timed runs.
+the kernel library, so their wrappers' counters (utils/trace.py) are
+added.  Synchronizing calls are counted under
+`torch.cuda.set_sync_debug_mode("warn")` on the second of two watched
+runs: the first run so watched in a process counts one more.  Both need a CUDA device; keep them out of timed runs.
 """
 
 from __future__ import annotations
@@ -16,37 +16,33 @@ import subprocess
 import time
 import warnings
 
+from shoulder_tpu_torch.utils import trace
+
+# the kernel wrappers' launch counters
+LAUNCHES = ("launches.slice_stack", "launches.slice_raw",
+            "launches.chain_walk", "launches.sphere_score",
+            "launches.sphere_fit")
+
 
 def reset_launches() -> None:
-    """Every kernel wrapper's launch count set to 0."""
-    from shoulder_tpu_torch.ops import chain_walk, slicing, sphere
-
-    chain_walk.launch_count = 0
-    slicing.launch_count = 0
-    slicing.raw_launch_count = 0
-    sphere.score_launch_count = 0
-    sphere.fit_launch_count = 0
+    """Every kernel wrapper's launch counter (utils/trace.py) set to 0."""
+    trace.reset(LAUNCHES)
 
 
 def launch_counts() -> tuple[int, int, int]:
     """(slice-stack, raw-loop, standalone walk) launches since
     reset_launches()."""
-    from shoulder_tpu_torch.ops import chain_walk, slicing
-
-    return (slicing.launch_count, slicing.raw_launch_count,
-            chain_walk.launch_count)
+    return tuple(trace.counter(n) for n in LAUNCHES[:3])
 
 
 def sphere_launch_counts() -> tuple[int, int]:
     """(sphere score, sphere fit) launches since reset_launches()."""
-    from shoulder_tpu_torch.ops import sphere
-
-    return sphere.score_launch_count, sphere.fit_launch_count
+    return tuple(trace.counter(n) for n in LAUNCHES[3:])
 
 
 def port_launches() -> int:
     """Every launch of the port's own kernels since reset_launches()."""
-    return sum(launch_counts()) + sum(sphere_launch_counts())
+    return sum(trace.counter(n) for n in LAUNCHES)
 
 
 def count_launches(run) -> dict:

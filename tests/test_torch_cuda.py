@@ -24,6 +24,7 @@ from shoulder_tpu_torch.ops import chain_walk, kernels, marching_tets, sphere
 from shoulder_tpu_torch.ops import slicing as tsl
 from shoulder_tpu_torch.pipeline import ct
 from shoulder_tpu_torch.utils import geometry as geom
+from shoulder_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -76,10 +77,10 @@ def tiny_bone(tmp_path_factory):
 def test_cuda_kernel_matches_plain_walk(card):
     succ, crossed = (torch.as_tensor(a, device=card)
                      for a in _random_rows(3, k=384, n_rows=600))
-    before = chain_walk.launch_count
+    before = trace.counter("launches.chain_walk")
     got = chain_walk.chain_walk_marked(succ, crossed)
     torch.cuda.synchronize()
-    assert chain_walk.launch_count == before + 1
+    assert trace.counter("launches.chain_walk") == before + 1
     want = chain_walk.chain_walk_plain(succ, crossed)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -108,11 +109,11 @@ def test_cuda_kernel_matches_plain_slice_stack(card, tiny_bone, stack):
     sset = getattr(CFG, stack)
     zs = torch.as_tensor(_edge_planes(v_obb.numpy(), spec.n_verts),
                          device=card)
-    before = tsl.launch_count
+    before = trace.counter("launches.slice_stack")
     got = tsl.slice_stack(sg, zs, sset.interp_num, sset.band,
                           CFG.slice_compact_k)
     torch.cuda.synchronize()
-    assert tsl.launch_count == before + 1
+    assert trace.counter("launches.slice_stack") == before + 1
     band = min(sset.band, sg.z_key.shape[0])
     want = tsl.slice_stack_plain(sg, zs, sset.interp_num, band,
                                  min(CFG.slice_compact_k, band))
@@ -187,10 +188,10 @@ def test_cuda_batched_launch_equals_per_bone_launches(card, tmp_path):
                        sset.zslice_num)
     band = min(sset.band, sg.z_key.shape[-1])
     k = min(CFG.slice_compact_k, band)
-    before = tsl.launch_count
+    before = trace.counter("launches.slice_stack")
     got = tsl.slice_stack(sg, zs, sset.interp_num, sset.band,
                           CFG.slice_compact_k)
-    assert tsl.launch_count == before + 1
+    assert trace.counter("launches.slice_stack") == before + 1
     for b in range(len(specs)):
         one = tsl.slice_stack_kernel(tsl.SortedGeom(*(x[b] for x in sg)),
                                      zs[b], sset.interp_num, band, k)
@@ -362,9 +363,9 @@ def test_cuda_raw_loop_matches_plain(card, four_bones, select, shape):
     band = min(band, sg.z_key.shape[-1])
     for rel in (0.3, 0.55, 0.8):
         z = (z_min + rel * (z_max - z_min)).contiguous()
-        before = tsl.raw_launch_count
+        before = trace.counter("launches.slice_raw")
         got = tsl.slice_raw_banded(sg, z, band, max_chain, select, k=k)
-        assert tsl.raw_launch_count == before + 1
+        assert trace.counter("launches.slice_raw") == before + 1
         k = min(k, band)
         want = tsl.slice_raw_banded_plain(sg, z, band, max_chain, select, k)
         torch.cuda.synchronize()
@@ -472,11 +473,11 @@ def test_cuda_sphere_score_matches_plain(card, scale):
     pts, w_row, h_rad, h_cen = _sphere_case(card)
     s = 0.7 if scale == "number" else torch.tensor([0.7, 1.2, 2.0],
                                                    device=card)
-    before = sphere.score_launch_count
+    before = trace.counter("launches.sphere_score")
     got = sphere.scores(pts, w_row, h_rad, h_cen, s)
     want = sphere.score_plain(pts, w_row, h_rad, h_cen, s)
     torch.cuda.synchronize()
-    assert sphere.score_launch_count == before + 1
+    assert trace.counter("launches.sphere_score") == before + 1
     assert torch.equal(torch.isfinite(want), torch.isfinite(got))
     ok = torch.isfinite(want) & sphere.pickable(h_rad, h_cen)
     assert float(want[ok].max()) > 1e3
@@ -490,7 +491,7 @@ def test_cuda_sphere_fit_matches_plain(card, kind):
     eye4 = torch.eye(4, device=card)
     radius, center = h_rad[:, -1].contiguous(), h_cen[:, 0].contiguous()
     scale = torch.tensor([1.0, 1.5, 0.7], device=card)
-    before = sphere.fit_launch_count
+    before = trace.counter("launches.sphere_fit")
     if kind.startswith("given"):
         w = (torch.rand(pts.shape[:2], generator=torch.Generator(
             device=card).manual_seed(3), device=card) < 0.3).float()
@@ -508,7 +509,8 @@ def test_cuda_sphere_fit_matches_plain(card, kind):
         got = sphere.sigma_sums(pts, radius, center, 1.0)
         want = sphere.sigma_sums_plain(pts, radius, center, 1.0)
     torch.cuda.synchronize()
-    assert sphere.fit_launch_count == before + (1 if kind == "sigma" else 2)
+    assert (trace.counter("launches.sphere_fit")
+            == before + (1 if kind == "sigma" else 2))
     if kind == "sigma":
         assert float(want[0].min()) > 100.0
         for g, w_ in zip(got, want):
@@ -585,7 +587,8 @@ def test_cuda_sphere_refused_launch_raises(card):
             return lib.sphere_fit_launch(*args[:7], 2, sphere.SIGMA,
                                          *args[9:])
 
-    before = (sphere.score_launch_count, sphere.fit_launch_count)
+    before = (trace.counter("launches.sphere_score"),
+              trace.counter("launches.sphere_fit"))
     with pytest.raises(RuntimeError, match="sphere_score kernel launch"):
         sphere.sphere_score_kernel(pts, w_row, h_rad, h_cen, 1.0,
                                    lib=Refusing())
@@ -597,7 +600,8 @@ def test_cuda_sphere_refused_launch_raises(card):
         sphere.sphere_score_kernel(pts, w_row,
                                    torch.full((1, 300), 24.0, device=card),
                                    torch.zeros(1, 300, 3, device=card), 1.0)
-    assert (sphere.score_launch_count, sphere.fit_launch_count) == before
+    assert (trace.counter("launches.sphere_score"),
+            trace.counter("launches.sphere_fit")) == before
     torch.cuda.synchronize()
 
 
@@ -610,11 +614,12 @@ def test_cuda_sphere_segment_matches_plain(card):
     hyp = segment.ransac_indices(int(0.4 * r) * c, card)
     sup = torch.zeros(2, r, c, device=card)
     sup[:, : int(0.45 * r)] = 1.0
-    before = (sphere.score_launch_count, sphere.fit_launch_count)
+    before = (trace.counter("launches.sphere_score"),
+              trace.counter("launches.sphere_fit"))
     got = segment.sphere_segment(pts, hyp, 12, 2.0, 0.3, init_mask=sup,
                                  support_mask=sup)
-    assert (sphere.score_launch_count - before[0],
-            sphere.fit_launch_count - before[1]) == (2, 30)
+    assert (trace.counter("launches.sphere_score") - before[0],
+            trace.counter("launches.sphere_fit") - before[1]) == (2, 30)
     with chip_smoke.plain_sphere():
         want = segment.sphere_segment(pts, hyp, 12, 2.0, 0.3, init_mask=sup,
                                       support_mask=sup)

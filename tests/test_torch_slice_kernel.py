@@ -24,6 +24,7 @@ from shoulder_tpu.utils import geometry as jgeom
 from shoulder_tpu_torch.models import forest as tforest
 from shoulder_tpu_torch.ops import kernels
 from shoulder_tpu_torch.ops import slicing as tsl
+from shoulder_tpu_torch.utils import trace
 
 CFG = tiny_config()
 STACKS = ["full", "proximal", "distal"]
@@ -196,10 +197,10 @@ def test_kernel_wrapper_checks_before_any_launch(geoms, monkeypatch, case):
 
     monkeypatch.setattr(kernels, "library", no_library)
     sg, zs_, band, k, err = _bad_args(tsg, zs)[case]
-    before = tsl.launch_count
+    before = trace.counter("launches.slice_stack")
     with pytest.raises(err):
         tsl.slice_stack_kernel(sg, zs_, 64, band, k)
-    assert tsl.launch_count == before
+    assert trace.counter("launches.slice_stack") == before
 
 
 def test_cpu_tensors_take_the_plain_version(geoms, monkeypatch):
@@ -212,12 +213,12 @@ def test_cpu_tensors_take_the_plain_version(geoms, monkeypatch):
 
     monkeypatch.setattr(kernels, "library", no_library)
     zs = torch.linspace(1.0, -1.0, 5)
-    before = tsl.launch_count
+    before = trace.counter("launches.slice_stack")
     st = tsl.slice_stack(tsg, zs, 64, 512, 384)
     assert st.contours.shape == (5, 64, 2)
     with pytest.raises(ValueError, match="CUDA"):
         tsl.slice_stack_kernel(tsg, zs, 64, 512, 384)
-    assert tsl.launch_count == before
+    assert trace.counter("launches.slice_stack") == before
 
 
 def test_stage_times_converts_block_clocks():

@@ -23,6 +23,7 @@ import torch
 from shoulder_tpu.utils import geometry as jgeom
 from shoulder_tpu_torch.config import tiny_config
 from shoulder_tpu_torch.ops import slicing as tsl
+from shoulder_tpu_torch.utils import trace
 
 CFG = tiny_config()
 
@@ -320,12 +321,12 @@ def test_cpu_takes_the_plain_composition(tiny_sg, monkeypatch):
         return plain(*args)
 
     monkeypatch.setattr(tsl, "slice_raw_banded_plain", spy)
-    before = tsl.raw_launch_count
+    before = trace.counter("launches.slice_raw")
     n_faces = sg.z_key.shape[-1]
     got = tsl.slice_raw_banded(sg, z, 10 ** 6, CFG.max_chain, "central",
                                k=10 ** 6)
     assert calls == [(n_faces, CFG.max_chain, "central", n_faces)]
-    assert tsl.raw_launch_count == before
+    assert trace.counter("launches.slice_raw") == before
     assert int(got[0].n[0]) > 10
     with pytest.raises(ValueError, match="CUDA tensors"):
         tsl.slice_raw_kernel(sg, z, 512, CFG.max_chain, "central", 512)

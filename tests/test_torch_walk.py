@@ -13,6 +13,7 @@ import torch
 
 from shoulder_tpu.ops import pallas_chain
 from shoulder_tpu_torch.ops import chain_walk
+from shoulder_tpu_torch.utils import trace
 
 from test_pallas_chain import _random_case
 
@@ -86,9 +87,9 @@ def test_plain_walk_self_loops_and_past_n():
 
 
 def test_wrapper_takes_plain_version_on_cpu():
-    before = chain_walk.launch_count
+    before = trace.counter("launches.chain_walk")
     succ, crossed = (torch.as_tensor(a) for a in _random_rows(0))
     chain_walk.chain_walk_marked(succ, crossed)
-    assert chain_walk.launch_count == before
+    assert trace.counter("launches.chain_walk") == before
     with pytest.raises(ValueError):
         chain_walk.chain_walk_marked(succ, crossed[:, :-1])

@@ -10,7 +10,8 @@
 # other, this, this, other; ROUNDS defaults to 2.  Each run's full output
 # goes to OUT_DIR/ab_<i>_<side>.log; the script prints each run's
 # batch times, profiled wall, busy and idle share, launch counts and the
-# slicing stages, then the pooled median and quartiles of the unprofiled
+# slicing stages (or, from a tree with the port's spans, the landmark
+# stages), then the pooled median and quartiles of the unprofiled
 # batch times of each side.
 set -euo pipefail
 other=$(cd "$1" && pwd)
@@ -29,7 +30,7 @@ for _ in $(seq "$rounds"); do
     (cd "$dir" && python3 tools/profile_torch_batch.py) > "$log" 2>&1 \
       || { tail -30 "$log"; exit 1; }
     echo "== run $i: $side"
-    grep -E "unprofiled|profiled batch|host waits|device ops|kernel launches per|^  (slice_stack_kernel|_compact_slice|_post_walk|chain_walk_marked) " "$log"
+    grep -E "unprofiled|profiled batch|host waits|device ops|kernel launches per|^  (slice_stack_kernel|_compact_slice|_post_walk|chain_walk_marked|landmarks\.[a-z_]+) " "$log"
   done
 done
 python3 - "$out" <<'EOF'
