@@ -22,11 +22,17 @@ Phases (any failure raises, so the exit code is non-zero):
      (load_indexed's arrays and the BoneSpec's vertices, faces, neighbors
      and face_orig equal, obb_transform and z_bounds within 1e-6; both
      times printed), and run compute_landmarks_batch at DEFAULT_CONFIG
-     with the UNet segmenter on the card, one program for the batch;
+     with the UNet segmenter on the card, one program for the batch,
+     twice: the first call runs each stage eagerly and captures it as a
+     CUDA graph (pipeline/graphs.py; its raw-loop inputs and any plain
+     compaction recorded), the second, counted, replays every graph;
      every bone must get its side right and land within 3 deg / 3 deg /
      1 mm of the constructed neck-shaft angle, retroversion and head
-     radius, with no slice overflow; the fused slice-stack kernel must
-     have been launched exactly once per stack for the whole batch (3),
+     radius, with no slice overflow; in the replayed call (the port's
+     kernels counted by name from a profile of the card, as every phase
+     below counts them: a replay calls no kernel wrapper) the fused
+     slice-stack kernel must have run exactly once per stack for the
+     whole batch (3),
      the raw-loop kernel (csrc/slice_raw.cu) once for the batch's
      surgical-neck planes, the sphere score kernel twice and the sphere
      fit kernel 30 times (the batch's one sphere_segment call: two picks,
@@ -80,19 +86,25 @@ Phases (any failure raises, so the exit code is non-zero):
      basin sigma, for the batch and bone 0 alone, the fits beside torch.bmm
      of the same (A w)^T [A | f] product;
   6. timing: a batch of 1 and a batch of 8 at DEFAULT_CONFIG with the
-     UNet, each profiled once (kernel launches: the profiler's
+     UNet, on the main path (each stage a CUDA graph's replay) and with
+     the stages eager (landmarks._stages), each profiled once (kernel
+     launches: the profiler's
      cudaLaunchKernel and every launch API call, plus the port's own
-     kernels' launches, which it does not count; device busy time and
-     idle share), twice under torch.cuda.set_sync_debug_mode("warn")
+     kernels' launches from the host, which it does not count; device
+     busy time and idle share), twice under
+     torch.cuda.set_sync_debug_mode("warn")
      (the second run's synchronizing calls counted: a process's first run
      so watched counts one more), and 5 warm synchronized runs (p50,
-     and the peak memory above what was resident before them); each batch
+     and the peak memory above what was resident before them), the
+     graphed numbers printed beside the eager ones with the graphs'
+     counters (replays, no fallback, no more synchronizing calls than
+     eager); each batch, stages eager,
      also profiled and counted with the plain raw loop the parent tree ran
      on the card, and 6 synchronized runs of each timed in turns (plain,
      kernel, kernel, plain, ...), both printed, the kernel's
-     synchronizing calls no more than the plain one's; launches per batch
-     of 8 at most 1.25x a batch of 1's, synchronizing calls no more and
-     at most 3; the
+     synchronizing calls no more than the plain one's; on the main path,
+     launches per batch of 8 at most 1.25x a batch of 1's, synchronizing
+     calls no more and at most 3; the
      largest batch the card holds, linear in B from the two peaks;
   7. facade: the README flow through shoulder_tpu_torch.Humerus on the card
      (canal on z through the origin, metrics equal to phase 4's bone 0
@@ -268,9 +280,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from shoulder_tpu_torch.utils.bench import (card, launch_counts,
-                                            port_launches, reset_launches,
-                                            sphere_launch_counts)
+from torch.profiler import ProfilerActivity, profile
+
+from shoulder_tpu_torch.utils import bench
+from shoulder_tpu_torch.utils.bench import card
 
 BATCH = 8
 REPS = 5
@@ -388,15 +401,100 @@ def timed_cuda(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+# The port's kernels that ran on the card since reset_launches(), counted
+# by name from a profile of the card (bench.kernel_runs): a CUDA graph's
+# replay (pipeline/graphs.py) calls no kernel wrapper, so the wrappers'
+# launch counters see only the host's launches.  The first read ends the
+# profile; later reads give the same counts until the next reset.
+_RUNS = {"prof": None, "counts": dict.fromkeys(bench.LAUNCHES, 0)}
+
+
+def reset_launches():
+    """Zero the kernel runs and profile the card until the next read."""
+    _end_runs()
+    _RUNS["counts"] = dict.fromkeys(bench.LAUNCHES, 0)
+    _start_runs()
+
+
+def _start_runs():
+    _RUNS["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+    _RUNS["prof"].start()
+
+
+def _end_runs():
+    prof, _RUNS["prof"] = _RUNS["prof"], None
+    if prof is not None:
+        torch.cuda.synchronize()
+        prof.stop()
+        for name, n in bench.kernel_runs(prof).items():
+            _RUNS["counts"][name] += n
+
+
+def _runs(names):
+    _end_runs()
+    return tuple(_RUNS["counts"][name] for name in names)
+
+
+def launch_counts():
+    """(slice-stack, raw-loop, standalone walk) kernel runs since
+    reset_launches()."""
+    return _runs(bench.LAUNCHES[:3])
+
+
+def sphere_launch_counts():
+    """(sphere score, sphere fit) kernel runs since reset_launches()."""
+    return _runs(bench.LAUNCHES[3:])
+
+
+def port_launches():
+    """Every run of the port's own kernels since reset_launches()."""
+    return sum(_runs(bench.LAUNCHES))
+
+
+@contextlib.contextmanager
+def counted_profiles():
+    """Within the block a profile that bench.count_launches takes pauses
+    the kernel runs' own, and its kernels are added to them (one
+    profiler runs at a time)."""
+    fn = bench.count_launches
+
+    def wrapped(run):
+        running = _RUNS["prof"] is not None
+        _end_runs()
+        out = fn(run)
+        for name, n in bench.kernel_runs(out["prof"]).items():
+            _RUNS["counts"][name] += n
+        if running:
+            _start_runs()
+        return out
+
+    with swapped(bench, "count_launches", wrapped):
+        yield
+
+
+def _kept(tree):
+    """tree with each tensor cloned (a stage's result may live in a CUDA
+    graph's pool, which its next replay overwrites); None while a graph
+    is being captured, which runs nothing."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return None
+    return torch.utils._pytree.tree_map(
+        lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+
 @contextlib.contextmanager
 def recording(module, name, sink):
     """Within the block, module.name runs as usual and each call's
-    (args, result) is appended to sink."""
+    (args, result), copied, is appended to sink.  A stage (a function
+    that pipeline/graphs.py replays) shows each call; a function inside
+    one shows only its stage's first call at a key, the eager run."""
     fn = getattr(module, name)
 
     def wrapped(*args, **kwargs):
         out = fn(*args, **kwargs)
-        sink.append((args, out))
+        if (kept := _kept((args, out))) is not None:
+            sink.append(kept)
         return out
 
     setattr(module, name, wrapped)
@@ -431,7 +529,9 @@ def cuda_timing(module, name, sink):
 
 @contextlib.contextmanager
 def swapped(module, name, fn):
-    """Within the block, module.name is fn."""
+    """Within the block, module.name is fn.  A function inside a stage
+    (pipeline/graphs.py) is called only where the stage runs eagerly: at
+    its first call at a key, or under landmarks._stages."""
     saved = getattr(module, name)
     setattr(module, name, fn)
     try:
@@ -456,7 +556,9 @@ def recording_raw(sink):
         bound_args.apply_defaults()
         sg, z, band, max_chain, select, k = bound_args.args
         band = min(band, sg.z_key.shape[-1])
-        sink.append(((sg, z, band, max_chain, select, min(k, band)), out))
+        kept = _kept(((sg, z, band, max_chain, select, min(k, band)), out))
+        if kept is not None:
+            sink.append(kept)
         return out
 
     with swapped(slicing, "slice_raw_banded", wrapped):
@@ -728,7 +830,7 @@ def facade_phase(td, path, dev, lm_np, smi):
     from shoulder_tpu_torch.io import stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
 
-    # (slice-stack, raw-loop) launches of each step
+    # (slice-stack, raw-loop) kernel runs of each step; walk runs of all
     counts = {}
     reset_launches()
     t0 = time.perf_counter()
@@ -736,7 +838,8 @@ def facade_phase(td, path, dev, lm_np, smi):
     ingest_s = time.perf_counter() - t0
     hum.apply_csys_canal_transepiconylar()
     first_s = time.perf_counter() - t0
-    counts["landmarks"] = launch_counts()[:2]
+    runs = launch_counts()
+    counts["landmarks"], walks = runs[:2], runs[2]
     log(f"facade: Humerus first landmark in {first_s * 1e3:.1f} ms wall "
         f"(ingest {ingest_s * 1e3:.1f} ms, landmarks and csys "
         f"{(first_s - ingest_s) * 1e3:.1f} ms), (slice-stack, raw-loop) "
@@ -759,6 +862,7 @@ def facade_phase(td, path, dev, lm_np, smi):
     gate_like("facade", got, phase4_bone(lm_np, 0))
 
     # the osteotomy probes of the verify notes
+    reset_launches()
     ost = stt.HumeralHeadOsteotomy(hum)
     if abs(ost.neckshaft_rel) > 1e-4 or abs(ost.retroversion_rel) > 1e-4:
         raise AssertionError("native cut is not at 0 / 0")
@@ -779,8 +883,10 @@ def facade_phase(td, path, dev, lm_np, smi):
     if "mesh3d" not in stt.Plot(hum).figure.to_html():
         raise AssertionError("plot has no mesh3d trace")
 
+    walks += launch_counts()[2]
+
     # the slice views: one slice-stack launch each
-    before = launch_counts()
+    reset_launches()
     for name in ("full_slices", "proximal_slices", "distal_slices"):
         view = getattr(hum, name)
         xy, areas = view.ixy((0.1, 0.9)), view.areas1((0.1, 0.9))
@@ -788,18 +894,21 @@ def facade_phase(td, path, dev, lm_np, smi):
             f"{areas.min():.1f}..{areas.max():.1f} mm^2")
         if not (np.isfinite(xy).all() and (areas > 0).all()):
             raise AssertionError(f"{name}: non-finite contour or empty slice")
-    counts["views"] = tuple(a - b for a, b in zip(launch_counts()[:2], before))
+    runs = launch_counts()
+    counts["views"] = runs[:2]
+    walks += runs[2]
 
     # a proximal-only bone, on the card and on the CPU (plain composition)
     v, f = synthetic_humerus(side="left", proximal_only=True,
                              rng_transform=np.random.default_rng(8))
     prox_path = os.path.join(td, "proximal.stl")
     stl.write_stl(prox_path, v, f)
-    before = launch_counts()
+    reset_launches()
     ph = stt.ProximalHumerus(prox_path, device=dev)
     card = (ph.side(), ph.neckshaft(), ph.radius_curvature())
-    counts["proximal"] = tuple(a - b for a, b in zip(launch_counts()[:2],
-                                                     before))
+    runs = launch_counts()
+    counts["proximal"] = runs[:2]
+    walks += runs[2]
     ph_cpu = stt.ProximalHumerus(prox_path, device="cpu")
     cpu = (ph_cpu.side(), ph_cpu.neckshaft(), ph_cpu.radius_curvature())
     log(f"ProximalHumerus: card {card}, cpu {cpu}")
@@ -808,7 +917,7 @@ def facade_phase(td, path, dev, lm_np, smi):
     if not (abs(card[1] - cpu[1]) < 0.75 and abs(card[2] - cpu[2]) < 0.75):
         raise AssertionError("ProximalHumerus card and cpu differ")
 
-    counts["walk"] = launch_counts()[2]
+    counts["walk"] = walks
     log(f"facade launches: {counts}")
     for name, want in (("landmarks", (3, 1)), ("views", (3, 0)),
                        ("proximal", (2, 1)), ("walk", 0)):
@@ -1303,12 +1412,13 @@ SPHERE_CALLS = ("scores", "fit_moments", "irls_moments", "sigma_sums")
 @contextlib.contextmanager
 def recording_kw(module, name, sink):
     """Within the block, module.name runs as usual and each call's
-    (args, kwargs, result) is appended to sink."""
+    (args, kwargs, result), copied, is appended to sink (see recording)."""
     fn = getattr(module, name)
 
     def wrapped(*args, **kwargs):
         out = fn(*args, **kwargs)
-        sink.append((args, kwargs, out))
+        if (kept := _kept((args, kwargs, out))) is not None:
+            sink.append(kept)
         return out
 
     setattr(module, name, wrapped)
@@ -2433,7 +2543,6 @@ def one_batch(name, launches):
     if launches[name] != (3, 1, 0):
         raise AssertionError(f"{name}: (slice-stack, raw-loop, walk) "
                              f"launches {launches[name]}, expected (3, 1, 0)")
-    reset_launches()
 
 
 def landmark_batch(specs, dev, rf, cfg, seg2d=None):
@@ -2630,6 +2739,7 @@ def nan_trap_leg(td, dev, rf, seg2d, bones, lm, smi, launches, ingest):
     for name, batch, cfg, seg, ref in (
             ("phase 4 batch", bones, DEFAULT_CONFIG, seg2d, lm),
             ("arthritic cohort", robust, tiny, None, lm_a)):
+        reset_launches()
         with nan_trap.trap(raise_first=False) as mode:
             got = B.compute_landmarks_batch(batch, rf, cfg=cfg,
                                             seg_model=seg, chunk=16)
@@ -2732,33 +2842,41 @@ def in_turns(runs, pairs=REPS + 1):
     return out
 
 
-def ab_timing(bones, rf, seg, pairs=REPS + 1):
-    """Synchronized batch ms of the main path with the plain raw loop
-    (plain_raw_banded) and with the raw-loop kernel, in turns (plain,
-    kernel, kernel, plain, ...), `pairs` of each, after one warm run
-    each: {"plain": [...], "kernel": [...]}."""
+def eager_batch(bones, rf, seg):
+    """A batch's landmarks at DEFAULT_CONFIG with the UNet and the stages
+    eager (landmarks._stages, no CUDA graph), so a function swapped into
+    a stage runs."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.pipeline import landmarks as L
+
+    return L._stages(bones, rf, False, DEFAULT_CONFIG, 150, seg, None)
+
+
+def ab_timing(bones, rf, seg, pairs=REPS + 1):
+    """Synchronized batch ms of the stages eager (eager_batch) with the
+    plain raw loop (plain_raw_banded) and with the raw-loop kernel, in
+    turns (plain, kernel, kernel, plain, ...), `pairs` of each, after one
+    warm run each: {"plain": [...], "kernel": [...]}."""
     from shoulder_tpu_torch.ops import slicing
-    from shoulder_tpu_torch.pipeline import batch as B
 
     def run(plain):
         with (swapped(slicing, "slice_raw_banded", plain_raw_banded)
               if plain else contextlib.nullcontext()):
-            B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
-                                      seg_model=seg)
+            eager_batch(bones, rf, seg)
 
     return in_turns({"plain": lambda: run(True),
                      "kernel": lambda: run(False)}, pairs)
 
 
-def batch_timing(bones, rf, seg, smi, reps=REPS):
-    """Phase 6 for one batch: one profiled run (kernel launches: the
-    profiler's cudaLaunchKernel and every launch API call, plus the port's
-    own kernels' launches, which it does not count; the device's busy
-    time and idle share), two runs under set_sync_debug_mode("warn")
-    (the second's synchronizing calls counted: the first run so watched in
-    a process counts one more, whichever path it takes), then `reps` warm
-    synchronized runs (p50)."""
+def batch_timing(bones, rf, seg, smi, reps=REPS, eager=False):
+    """Phase 6 for one batch on the main path (or with the stages eager,
+    eager_batch): one profiled run (kernel launches: the profiler's
+    cudaLaunchKernel and every launch API call, plus the port's own
+    kernels' launches from the host, which it does not count; the
+    device's busy time and idle share), two runs under
+    set_sync_debug_mode("warn") (the second's synchronizing calls
+    counted: the first run so watched in a process counts one more,
+    whichever path it takes), then `reps` warm synchronized runs (p50)."""
     from shoulder_tpu_torch.config import DEFAULT_CONFIG
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.utils import bench
@@ -2766,8 +2884,11 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
     n = bones.verts.shape[0]
 
     def run():
-        B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
-                                  seg_model=seg)
+        if eager:
+            eager_batch(bones, rf, seg)
+        else:
+            B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
+                                      seg_model=seg)
 
     run()
     torch.cuda.synchronize()
@@ -2793,7 +2914,8 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
            "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms, "batch_ms": lat,
            "p50_ms": float(np.median(lat)) if lat else None}
-    log(f"batch of {n}: {res['launches']} kernel launches ({api}, plus "
+    log(f"batch of {n}{', stages eager' if eager else ''}: "
+        f"{res['launches']} kernel launches ({api}, plus "
         f"{port} of the port's kernels), {syncs} synchronizing calls; "
         f"profiled run {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
         f"share {res['idle_share']:.3f}"
@@ -2801,6 +2923,37 @@ def batch_timing(bones, rf, seg, smi, reps=REPS):
            + f", p50 {res['p50_ms']:.1f}; peak memory above the "
            f"{resident / 2**20:.1f} MiB resident {peak / 2**20:.1f} MiB"
            if lat else "") + f" ({smi})")
+    return res
+
+
+def graphs_timing(bones, rf, seg, eager, smi, reps=REPS):
+    """Phase 6's counts and times of one batch on the main path, each
+    stage a CUDA graph's replay after its first call (pipeline/graphs.py),
+    printed beside the eager run's (`eager`, batch_timing's with the
+    stages eager) with the graphs' counters over the calls: the replays,
+    and no fallback."""
+    from shoulder_tpu_torch.pipeline import graphs
+    from shoulder_tpu_torch.utils import trace
+
+    before = {name: trace.counter(name) for name in graphs.COUNTERS}
+    res = batch_timing(bones, rf, seg, smi, reps=reps)
+    res["counters"] = {name: trace.counter(name) - before[name]
+                       for name in graphs.COUNTERS}
+    n = bones.verts.shape[0]
+    log(f"batch of {n}, eager -> CUDA graphs: launches {eager['launches']}"
+        f" -> {res['launches']} (launch API calls {eager['launch_api']} -> "
+        f"{res['launch_api']}), synchronizing calls {eager['syncs']} -> "
+        f"{res['syncs']}, device busy {eager['busy_ms']:.1f} -> "
+        f"{res['busy_ms']:.1f} ms, idle share {eager['idle_share']:.3f} -> "
+        f"{res['idle_share']:.3f}, p50 {eager['p50_ms']:.1f} -> "
+        f"{res['p50_ms']:.1f} ms; graphs counters {res['counters']} ({smi})")
+    if res["counters"]["graphs.fallbacks"] or not res["counters"][
+            "graphs.replays"]:
+        raise AssertionError(f"batch of {n}: CUDA graphs fell back or did "
+                             f"not replay: {res['counters']}")
+    if res["syncs"] > eager["syncs"]:
+        raise AssertionError(f"batch of {n}: the replay added synchronizing "
+                             f"calls")
     return res
 
 
@@ -2828,7 +2981,7 @@ def bench_phase(phase6, bones, rf, seg, smi):
 
     buf = io.StringIO()
     reset_launches()
-    with ingest_split(split := {}), \
+    with ingest_split(split := {}), counted_profiles(), \
             recording(slicing, "_compact_slice", []) as compactions:
         res = bench_torch.run_bench("cuda", DEFAULT_CONFIG, BATCH, REPS,
                                     out=buf)
@@ -3310,6 +3463,7 @@ def main(td):
     from shoulder_tpu_torch.ops import kernels, slicing
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import landmarks as L
+    from shoulder_tpu_torch.utils import trace
 
     # ---- build: the kernels (nvcc) and the native ingest (g++) together
     def timed_build(build):
@@ -3367,25 +3521,35 @@ def main(td):
         raise AssertionError(f"expected 3 stacks, saw {len(bone0_stacks)}")
     walk = walk_phase(dev, bone0_stacks, smi)
 
-    # ---- pipeline on the card: the main path, counted
-    reset_launches()
+    # ---- pipeline on the card: the main path.  Its first call runs each
+    # stage eagerly and captures it (the raw loop's inputs and any plain
+    # compaction recorded there); the second replays the graphs, counted
     t0 = time.perf_counter()
+    with recording_raw([]) as main_raw, \
+            recording(slicing, "_compact_slice", []) as compactions:
+        B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
+                                  seg_model=seg)
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    replays = trace.counter("graphs.replays")
+    reset_launches()
     with recording(slicing, "slice_stack", []) as main_stacks, \
-            recording_raw([]) as main_raw, \
-            recording(slicing, "_compact_slice", []) as compactions, \
             recording_kw(segment, "sphere_segment", []) as main_sphere:
         lm = B.compute_landmarks_batch(bones, rf, cfg=DEFAULT_CONFIG,
                                        seg_model=seg)
         torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
     launches, raw_launches, walk_launches = launch_counts()
     score_launches, fit_launches = sphere_launch_counts()
-    log(f"pipeline: first batch of {BATCH} in {first_s:.2f} s, "
-        f"{launches} slice-stack launches, {raw_launches} raw-loop launches "
-        f"(the batch's surgical-neck planes), {walk_launches} walk "
-        f"launches, {len(compactions)} plain compactions, "
-        f"{score_launches} sphere-score and {fit_launches} sphere-fit "
-        f"launches")
+    replays = trace.counter("graphs.replays") - replays
+    log(f"pipeline: first batch of {BATCH} in {first_s:.2f} s; the "
+        f"replayed batch ({replays} graph replays): {launches} slice-stack "
+        f"runs, {raw_launches} raw-loop runs (the batch's surgical-neck "
+        f"planes), {walk_launches} walk runs, {score_launches} "
+        f"sphere-score and {fit_launches} sphere-fit runs; "
+        f"{len(compactions)} plain compactions")
+    if not replays:
+        raise AssertionError("the main path's second batch replayed no "
+                             "CUDA graph")
     if ((score_launches, fit_launches) != sphere_launches(DEFAULT_CONFIG)
             or len(main_sphere) != 1):
         raise AssertionError(f"the main path made {score_launches} sphere "
@@ -3464,30 +3628,35 @@ def main(td):
     sphere_res = sphere_phase(main_sphere[0], smi)
     del main_sphere
 
-    # ---- timing: a batch of 1 against a batch of 8; each also with the
-    # plain raw loop the parent tree ran on the card (profiled and
-    # counted), and both timed in interleaved turns
+    # ---- timing: a batch of 1 against a batch of 8, the stages eager;
+    # each also with the plain raw loop the parent tree ran on the card
+    # (profiled and counted), and both timed in interleaved turns; then
+    # each replayed as CUDA graphs, beside its eager numbers
     t_phase6 = time.perf_counter()
-    timing, timing_plain = {}, {}
+    timing, timing_eager, timing_plain = {}, {}, {}
     for n in (1, BATCH):
         batch_n = B.stack_bones(specs[:n], dev)
-        timing[n] = batch_timing(batch_n, rf, seg, smi)
+        timing_eager[n] = batch_timing(batch_n, rf, seg, smi, eager=True)
+        timing[n] = graphs_timing(batch_n, rf, seg, timing_eager[n], smi)
         with swapped(slicing, "slice_raw_banded", plain_raw_banded):
-            timing_plain[n] = batch_timing(batch_n, rf, seg, smi, reps=0)
+            timing_plain[n] = batch_timing(batch_n, rf, seg, smi, reps=0,
+                                           eager=True)
         ab = ab_timing(batch_n, rf, seg)
-        timing[n]["ab_ms"], timing_plain[n]["ab_ms"] = ab["kernel"], ab["plain"]
+        eager = timing_eager[n]
+        eager["ab_ms"], timing_plain[n]["ab_ms"] = ab["kernel"], ab["plain"]
         p, k = (float(np.median(ab[v])) for v in ("plain", "kernel"))
-        log(f"batch of {n}, plain raw loop -> raw-loop kernel: launches "
-            f"{timing_plain[n]['launches']} -> {timing[n]['launches']}, "
+        log(f"batch of {n}, stages eager, plain raw loop -> raw-loop "
+            f"kernel: launches "
+            f"{timing_plain[n]['launches']} -> {eager['launches']}, "
             f"synchronizing calls {timing_plain[n]['syncs']} -> "
-            f"{timing[n]['syncs']}, device busy {timing_plain[n]['busy_ms']:.1f}"
-            f" -> {timing[n]['busy_ms']:.1f} ms, idle share "
+            f"{eager['syncs']}, device busy {timing_plain[n]['busy_ms']:.1f}"
+            f" -> {eager['busy_ms']:.1f} ms, idle share "
             f"{timing_plain[n]['idle_share']:.3f} -> "
-            f"{timing[n]['idle_share']:.3f}; interleaved batch ms, median "
+            f"{eager['idle_share']:.3f}; interleaved batch ms, median "
             f"(min-max) over {len(ab['kernel'])} each: {p:.1f} "
             f"({min(ab['plain']):.1f}-{max(ab['plain']):.1f}) -> {k:.1f} "
             f"({min(ab['kernel']):.1f}-{max(ab['kernel']):.1f}) ({smi})")
-        if timing[n]["syncs"] > timing_plain[n]["syncs"]:
+        if eager["syncs"] > timing_plain[n]["syncs"]:
             raise AssertionError("the raw-loop kernel added synchronizing "
                                  "calls")
     log(f"timing phase: {time.perf_counter() - t_phase6:.1f} s")
@@ -3597,6 +3766,7 @@ def main(td):
         "per_stack_bone0": per_stack_bone0,
         "per_stack_ct": ct_res["per_stack"],
         "timing": timing,
+        "timing_eager": timing_eager,
         "timing_plain_raw_loop": timing_plain,
         "mesh": mesh_res,
         "ct": {"max_abs_err": max(ct_worst["contour_mm"],

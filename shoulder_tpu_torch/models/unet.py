@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shoulder_tpu_torch.models import convert
+from shoulder_tpu_torch.pipeline import graphs
 
 DEFAULT_NPZ = Path(__file__).resolve().parent / "params" / "unet.npz"
 FEATURES = (16, 32, 64, 128)
@@ -237,6 +238,7 @@ def _load_model(device: str, npz_path: str, _size: int, _mtime_ns: int) -> UNet:
 
 
 @torch.no_grad()
+@graphs.graphed
 def segment_image(model: UNet, image):
     """(..., H, W) normalized polar images -> (..., H, W) float {0,1}
     masks, every image of a batch through one forward pass.

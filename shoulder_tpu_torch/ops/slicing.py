@@ -47,6 +47,7 @@ import torch
 
 from shoulder_tpu_torch.ops import chain_walk, kernels
 from shoulder_tpu_torch.ops import signal
+from shoulder_tpu_torch.pipeline import graphs
 from shoulder_tpu_torch.utils import trace
 
 _BIG = torch.iinfo(torch.int32).max
@@ -136,6 +137,7 @@ def _z_range(g: FaceGeom, faces):
             torch.where(degenerate, -torch.inf, g.fvz.amax(dim=-1)))
 
 
+@graphs.graphed
 def sorted_geom(verts, faces, neighbors, face_orig=None) -> SortedGeom:
     """Z-sorted face geometry of verts (..., V, 3), faces and neighbors
     (..., F, 3); leading dims are a bone batch, each bone sorted and
@@ -377,6 +379,7 @@ def _post_walk(order, is_start, n, start, end, orig, interp_num: int):
     return contour, centroid, area_best[:, 0], 0.5 * cr2.sum(dim=1)
 
 
+@graphs.graphed
 def slice_stack(sg: SortedGeom, zs, interp_num: int, band: int,
                 compact_k: int = 512, chunk: int = 150) -> SliceStack:
     """Cross-section contour stacks of planes zs (B, S) of a bone batch

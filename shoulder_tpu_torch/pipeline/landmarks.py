@@ -35,6 +35,7 @@ from shoulder_tpu_torch.models.forest import ForestParams, predict_proba
 from shoulder_tpu_torch.ops import rays, rect
 from shoulder_tpu_torch.ops import signal as sig
 from shoulder_tpu_torch.ops import slicing
+from shoulder_tpu_torch.pipeline import graphs
 from shoulder_tpu_torch.utils import fits
 from shoulder_tpu_torch.utils import geometry as geom
 from shoulder_tpu_torch.utils import trace
@@ -115,6 +116,7 @@ def _pairs(a, b):
 
 # --------------------------------------------------------------------- D
 @trace.spanned("landmarks.canal")
+@graphs.graphed
 def _canal(stack: slicing.SliceStack, bone: BoneTensors, proximal: bool,
            cfg: PipelineConfig):
     n_bones, n = stack.zs.shape
@@ -158,6 +160,7 @@ _NECK_MIN_K = 512  # the JAX package's slots for the surgical-neck plane
 
 
 @trace.spanned("landmarks.surgical_neck")
+@graphs.graphed
 def _surgical_neck(stack, bone: BoneTensors, proximal: bool,
                    cfg: PipelineConfig, max_chain: int, sg):
     n = stack.zs.shape[1]
@@ -199,6 +202,7 @@ def _to_polar_start(contour, center):
 
 # --------------------------------------------------------------------- E
 @trace.spanned("landmarks.groove")
+@graphs.graphed
 def _groove(prox: slicing.SliceStack, bone: BoneTensors, canal_axis_ct,
             rf: ForestParams, cfg: PipelineConfig):
     n_bones, n = prox.zs.shape
@@ -323,6 +327,7 @@ def _groove(prox: slicing.SliceStack, bone: BoneTensors, canal_axis_ct,
 
 # --------------------------------------------------------------------- F
 @trace.spanned("anp.image_points")
+@graphs.graphed
 def _anp_image_points(prox: slicing.SliceStack, bg_theta,
                       cfg: PipelineConfig):
     """The anatomic-neck polar images (B, R, N), each normalised over its
@@ -396,6 +401,7 @@ def _anatomic_neck(prox: slicing.SliceStack, bone: BoneTensors, bg_theta,
 
 
 @trace.spanned("anp.from_mask")
+@graphs.graphed
 def _anp_from_mask(mask, pts, bone: BoneTensors, sph_resid,
                    out_n: int = 2048):
     """Rim extraction, plane fit, ellipse recenter, axis rays and radius of
@@ -452,6 +458,7 @@ def _anp_from_mask(mask, pts, bone: BoneTensors, sph_resid,
 
 
 # --------------------------------------------------------------------- G
+@graphs.graphed
 def _transepicondylar(distal: slicing.SliceStack, bone: BoneTensors,
                       canal_axis_ct, axis_central_ct, cfg: PipelineConfig):
     n_bones, n = distal.zs.shape
@@ -491,6 +498,7 @@ def _transepicondylar(distal: slicing.SliceStack, bone: BoneTensors,
 
 # --------------------------------------------------------------------- H
 @trace.spanned("landmarks.metrics")
+@graphs.graphed
 def _metrics(canal_axis_ct, axis_normal_ct, axis_central_ct, te_axis_ct,
              bg_points_ct, proximal: bool):
     tf_central = geom.construct_csys(canal_axis_ct, axis_central_ct)
@@ -526,7 +534,10 @@ def landmarks_batch(
 ) -> Landmarks:
     """Every landmark and metric of a stacked bone batch (every field
     (B, ...)), on the batch's device, in one set of launches: each slice
-    stack is one slice_stack call over all B bones' planes.
+    stack is one slice_stack call over all B bones' planes.  On a CUDA
+    device the stages replay CUDA graphs after their first call with the
+    same arguments' shapes and values (pipeline/graphs.py); the results
+    are the eager run's, bit for bit, in tensors of the caller's own.
 
     `seg_model`: the UNet (models.unet.load_model) when cfg.segmenter is
     "unet"; loaded here when not given.  `hyp_idx`: the (128, 4) RANSAC
@@ -535,7 +546,16 @@ def landmarks_batch(
     """
     if cfg.segmenter == "unet" and seg_model is None:
         seg_model = unet_mod.load_model(bones.verts.device)
+    with graphs.batch(bones.verts.device,
+                      (bones, proximal, cfg, chunk, hyp_idx),
+                      params=(rf, seg_model)) as g:
+        return g.outputs(_stages(g.inputs(bones), rf, proximal, cfg, chunk,
+                                 seg_model, hyp_idx))
 
+
+def _stages(bones: BoneTensors, rf: ForestParams, proximal: bool,
+            cfg: PipelineConfig, chunk: int, seg_model, hyp_idx) -> Landmarks:
+    """The body of `landmarks_batch`: stages A-H in order."""
     with trace.span("landmarks.sorted_geom"):
         verts_obb = geom.transform_pts(bones.verts, bones.obb_transform)
         # the z-sorted face geometry depends only on the mesh: once per bone

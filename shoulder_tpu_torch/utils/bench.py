@@ -5,13 +5,16 @@ synchronizing calls, counted the same way by `bench_torch.py` and by
 The profiler counts the launch API calls (cudaLaunchKernel and the
 others) but not the launches of the port's own kernels, which go through
 the kernel library, so their wrappers' counters (utils/trace.py) are
-added.  Synchronizing calls are counted under
+added.  A CUDA graph's replay launches its kernels without the API calls
+or the wrappers; `kernel_runs` counts the port's kernels that ran, by
+the names a profile gives them, however they were launched.  Synchronizing calls are counted under
 `torch.cuda.set_sync_debug_mode("warn")` on the second of two watched
 runs: the first run so watched in a process counts one more.  Both need a CUDA device; keep them out of timed runs.
 """
 
 from __future__ import annotations
 
+import re
 import subprocess
 import time
 import warnings
@@ -22,6 +25,16 @@ from shoulder_tpu_torch.utils import trace
 LAUNCHES = ("launches.slice_stack", "launches.slice_raw",
             "launches.chain_walk", "launches.sphere_score",
             "launches.sphere_fit")
+
+
+# each launch counter's kernels, by the names csrc/ gives them
+KERNELS = {"slice_stack_kernel": "launches.slice_stack",
+           "slice_raw_kernel": "launches.slice_raw",
+           "chain_walk_kernel": "launches.chain_walk",
+           "sphere_score_kernel": "launches.sphere_score",
+           "sphere_fit_kernel": "launches.sphere_fit",
+           "sphere_sigma_kernel": "launches.sphere_fit"}
+_KERNEL_NAME = re.compile(r"(?:^|::)(\w+_kernel)[<(]")
 
 
 def reset_launches() -> None:
@@ -43,6 +56,21 @@ def sphere_launch_counts() -> tuple[int, int]:
 def port_launches() -> int:
     """Every launch of the port's own kernels since reset_launches()."""
     return sum(trace.counter(n) for n in LAUNCHES)
+
+
+def kernel_runs(prof) -> dict:
+    """The port's kernels that ran on the card within a torch.profiler
+    profile, by launch counter name (LAUNCHES), replays of CUDA graphs
+    included."""
+    import torch
+
+    runs = dict.fromkeys(LAUNCHES, 0)
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and (m := _KERNEL_NAME.search(e.name))
+                and m.group(1) in KERNELS):
+            runs[KERNELS[m.group(1)]] += 1
+    return runs
 
 
 def count_launches(run) -> dict:

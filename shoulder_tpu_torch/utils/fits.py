@@ -209,10 +209,13 @@ def fit_ellipse(pts2d, w=None):
     s1, s2, s3 = dd[..., :3, :3], dd[..., :3, 3:], dd[..., 3:, 3:]
     t = -torch.linalg.solve_ex(s3, _t(s2)).result
     m = s1 + s2 @ t
-    # [[0, 0, 0.5], [0, -1, 0], [0.5, 0, 0]], made on the device
+    # [[0, 0, 0.5], [0, -1, 0], [0.5, 0, 0]], made on the device by fills:
+    # assigning a Python number to an element copies it from the host,
+    # which waits for the device and cannot be captured in a CUDA graph
     c1inv = torch.zeros((3, 3), dtype=m.dtype, device=m.device)
-    c1inv[0, 2] = c1inv[2, 0] = 0.5
-    c1inv[1, 1] = -1.0
+    c1inv[0, 2].fill_(0.5)
+    c1inv[2, 0].fill_(0.5)
+    c1inv[1, 1].fill_(-1.0)
     m = c1inv @ m
     vals, vecs = _eig3(m)
     cond = 4.0 * vecs[..., 0, :] * vecs[..., 2, :] - vecs[..., 1, :] ** 2

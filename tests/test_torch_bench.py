@@ -176,3 +176,43 @@ def test_count_syncs_takes_the_second_watched_run(monkeypatch):
 
     assert bench.count_syncs(run) == 3
     assert calls == ["warn", "warn"] and modes == ["warn", 0, "warn", 0]
+
+
+class _Event:
+    def __init__(self, name, device_type=torch.autograd.DeviceType.CUDA):
+        self.name, self.device_type = name, device_type
+
+
+class _Profile:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_kernel_runs_counts_the_ports_kernels_by_name():
+    """utils/bench.kernel_runs counts the device events of the port's
+    kernels by the names the trace gives them (template arguments and
+    namespaces included), each under its launch counter; host events,
+    ranges named like a kernel and PyTorch's own kernels are left out."""
+    names = [
+        "void (anonymous namespace)::slice_stack_kernel<false>(float const*, "
+        "int4 const*, float2 const*)",
+        "void (anonymous namespace)::slice_stack_kernel<true>(float const*)",
+        "(anonymous namespace)::slice_raw_kernel(float const*, int4 const*)",
+        "(anonymous namespace)::sphere_score_kernel(float const*, float)",
+        "void (anonymous namespace)::sphere_fit_kernel<2, 1>(float const*)",
+        "void (anonymous namespace)::sphere_fit_kernel<1, 0>(float const*)",
+        "(anonymous namespace)::sphere_sigma_kernel(float const*)",
+        "void at::native::vectorized_elementwise_kernel<8, at::native::"
+        "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)",
+        "slice_stack_kernel",
+    ]
+    events = [_Event(n) for n in names]
+    events.append(_Event("chain_walk_kernel(int const*)",
+                         torch.autograd.DeviceType.CPU))
+    assert bench.kernel_runs(_Profile(events)) == {
+        "launches.slice_stack": 2, "launches.slice_raw": 1,
+        "launches.chain_walk": 0, "launches.sphere_score": 1,
+        "launches.sphere_fit": 3}

@@ -628,3 +628,131 @@ def test_cuda_sphere_segment_matches_plain(card):
     assert float(agree.min()) >= 0.999
     assert float((got[1] - want[1]).abs().max()) <= 1e-3
     assert float((got[2] - want[2]).abs().max()) <= 1e-3
+
+
+# ---- CUDA graphs over the landmark stages (pipeline/graphs.py) -----------
+
+# the graphed calls of one batch with the UNet segmenter: sorted_geom, three
+# slice stacks, the surgical neck, canal, groove, anatomic-neck image
+# points, UNet, mask fits, transepicondylar axis and metrics
+GRAPHED_CALLS = 12
+GRAPH_CASES = {  # (config, bones a batch, distinct batches)
+    "batch8": (None, 8, 4),
+    "batch1": (None, 1, 3),
+    "ct4": ("ct", 4, 2),
+}
+
+
+def _graph_batches(tmp_path, case):
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.pipeline import batch as B
+
+    cfg_name, n, n_batches = GRAPH_CASES[case]
+    cfg = chip_smoke.ct_config() if cfg_name == "ct" else DEFAULT_CONFIG
+    specs = []
+    for i in range(n * n_batches):
+        v, f = synthetic_humerus(side=("left", "right")[i % 2],
+                                 rng_transform=np.random.default_rng(70 + i))
+        stl.write_stl(tmp_path / f"g{i}.stl", v, f)
+        specs.append(ingest.load_bone(tmp_path / f"g{i}.stl", config=cfg))
+    return cfg, [B.stack_bones(specs[j * n:(j + 1) * n], "cuda")
+                 for j in range(n_batches)]
+
+
+def _landmarks_np(lm):
+    return [x.cpu().numpy() for x in lm]
+
+
+def _same_bits(got, want):
+    return all(g.dtype == w.dtype and g.shape == w.shape
+               and g.tobytes() == w.tobytes() for g, w in zip(got, want))
+
+
+def _eager(batches, rf, cfg, seg):
+    """Each batch's landmarks with the stages eager (no CUDA graph)."""
+    from shoulder_tpu_torch.pipeline import landmarks as L
+
+    return [_landmarks_np(L._stages(b, rf, False, cfg, 150, seg, None))
+            for b in batches]
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_cuda_replayed_batches_equal_eager(card, tmp_path, case):
+    """Distinct batches cycled twice through landmarks_batch: every
+    Landmarks field of every call, read after all the calls (so call n's
+    result outlives call n+1), equals the eager run bit for bit; one
+    capture per graphed stage, replays after.  The kernel wrappers count
+    the host's launches (the first call's eager run and its capture), and
+    a replayed call runs each of the port's kernels a batch's times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shoulder_tpu_torch.models import forest
+    from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.pipeline import graphs
+    from shoulder_tpu_torch.utils import bench
+
+    cfg, batches = _graph_batches(tmp_path, case)
+    rf, seg = forest.load_params(card), unet.load_model(card)
+    graphs.clear()
+    want = _eager(batches, rf, cfg, seg)
+    trace.reset()
+    kept = [B.compute_landmarks_batch(b, rf, cfg=cfg, seg_model=seg)
+            for _ in range(2) for b in batches]
+    torch.cuda.synchronize()
+    for i, lm in enumerate(kept):
+        assert _same_bits(_landmarks_np(lm), want[i % len(batches)]), i
+    calls = len(kept)
+    assert trace.counter("graphs.captures") == GRAPHED_CALLS
+    assert trace.counter("graphs.replays") == GRAPHED_CALLS * (calls - 1)
+    assert trace.counter("graphs.eager") == GRAPHED_CALLS  # the first call
+    assert trace.counter("graphs.fallbacks") == 0
+    assert (trace.counter("launches.slice_stack"),
+            trace.counter("launches.slice_raw"),
+            trace.counter("launches.sphere_score"),
+            trace.counter("launches.sphere_fit")) == (6, 2, 2 * calls,
+                                                      30 * calls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        B.compute_landmarks_batch(batches[0], rf, cfg=cfg, seg_model=seg)
+        torch.cuda.synchronize()
+    assert bench.kernel_runs(prof) == {
+        "launches.slice_stack": 3, "launches.slice_raw": 1,
+        "launches.chain_walk": 0, "launches.sphere_score": 2,
+        "launches.sphere_fit": 30}
+    graphs.clear()
+
+
+def test_cuda_failed_capture_falls_back_eagerly(card, tmp_path,
+                                                monkeypatch):
+    """A stage that reads the card on the host cannot be captured: it
+    warns, counts one fallback, runs eagerly at that key from then on,
+    and the batch's landmarks still equal the eager run's bit for bit."""
+    from shoulder_tpu_torch.models import forest
+    from shoulder_tpu_torch.pipeline import batch as B
+    from shoulder_tpu_torch.pipeline import graphs
+
+    cfg, batches = _graph_batches(tmp_path, "batch1")
+    rf, seg = forest.load_params(card), unet.load_model(card)
+    spherical = geom.unitxyz_to_spherical
+
+    def host_read(xyz):  # used only by the metrics stage
+        float(xyz.sum())
+        return spherical(xyz)
+
+    monkeypatch.setattr(geom, "unitxyz_to_spherical", host_read)
+    graphs.clear()
+    want = _eager(batches[:2], rf, cfg, seg)
+    trace.reset()
+    with pytest.warns(RuntimeWarning, match="_metrics"):
+        first = B.compute_landmarks_batch(batches[0], rf, cfg=cfg,
+                                          seg_model=seg)
+    second = B.compute_landmarks_batch(batches[1], rf, cfg=cfg,
+                                       seg_model=seg)
+    assert _same_bits(_landmarks_np(first), want[0])
+    assert _same_bits(_landmarks_np(second), want[1])
+    assert trace.counter("graphs.fallbacks") == 1
+    assert trace.counter("graphs.captures") == GRAPHED_CALLS - 1
+    assert trace.counter("graphs.replays") == GRAPHED_CALLS - 1
+    # the first call, the failed key's eager calls after its capture
+    assert trace.counter("graphs.eager") == GRAPHED_CALLS + 2
+    graphs.clear()

@@ -21,7 +21,7 @@ from shoulder_tpu_torch.io import ingest, stl
 from shoulder_tpu_torch.io.testdata import synthetic_humerus
 from shoulder_tpu_torch.models import forest
 from shoulder_tpu_torch.pipeline import batch as B
-from shoulder_tpu_torch.pipeline import ct
+from shoulder_tpu_torch.pipeline import ct, graphs
 from shoulder_tpu_torch.utils import trace
 
 CFG = tiny_config()
@@ -38,6 +38,10 @@ SPHERE_SPANS = ("sphere_segment.score", "sphere_segment.fit",
                 "sphere_segment.sigma", "sphere_segment.rim")
 INGEST_SPANS = ("ingest.read_weld", "ingest.spec", "ingest.obb",
                 "ingest.head", "ingest.presort")
+# pipeline/graphs.py's always-on counters (benchmark/metrics/
+# graph_hit_share.py reads the replays and the eager calls)
+GRAPH_COUNTERS = ("graphs.captures", "graphs.replays", "graphs.eager",
+                  "graphs.fallbacks")
 
 
 @pytest.fixture(autouse=True)
@@ -311,3 +315,13 @@ def test_chrome_events():
     assert ev["ph"] == "X" and ev["name"] == "a" and ev["ts"] == 5.0
     assert ev["dur"] == (s.end_ns - s.start_ns) / 1e3
     assert ev["args"]["id"] == s.id and ev["tid"] == s.thread
+
+
+def test_graph_counters_are_named_and_count_nothing_on_the_cpu(paths):
+    """The CUDA-graph counters carry the names the benchmark reads; a
+    batch on the CPU runs eagerly and counts none of them."""
+    assert graphs.COUNTERS == GRAPH_COUNTERS
+    spec = ingest.load_bone(paths[0], config=CFG)
+    B.compute_landmarks_batch(B.stack_bones([spec], "cpu"),
+                              forest.load_params("cpu"), cfg=CFG)
+    assert all(trace.counter(name) == 0 for name in GRAPH_COUNTERS)
