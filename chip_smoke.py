@@ -1363,7 +1363,7 @@ def raw_loop_phase(main_raw, bone0_raw, smi):
     sge = slicing.SortedGeom(*(x[None].expand((edge.shape[0],) + x.shape)
                                .contiguous() for x in sg0))
     band0 = bone0_raw[0][2]
-    # the CT sizes (phase 9's ct_config: band 6144, k 1024, max_chain 1024)
+    # the CT sizes (phase 9's DENSE_CONFIG: band 6144, k 1024, max_chain 1024)
     # on the same planes: the kernel's block of 1024 threads
     ct_band = min(6144, sg.z_key.shape[-1])
     ct_args = (sg, z, ct_band, 1024, select, min(1024, ct_band))
@@ -1778,18 +1778,6 @@ def sphere_phase(call, smi):
     return res
 
 
-def ct_config():
-    """DEFAULT_CONFIG's stacks and UNet segmenter with the padded sizes of
-    a 1.0 mm CT mesh (~250k faces, tools/eval_ct_pitch.py:37-50)."""
-    from shoulder_tpu_torch.config import DEFAULT_CONFIG
-
-    return dataclasses.replace(
-        DEFAULT_CONFIG, max_faces=300000, max_verts=160000, max_chain=1024,
-        slice_compact_k=1024,
-        **{name: dataclasses.replace(getattr(DEFAULT_CONFIG, name), band=6144)
-           for name in STACKS})
-
-
 def welded_sizes(tris):
     """(vertices, faces, watertight) of a triangle soup after the weld."""
     from shoulder_tpu_torch.io import native
@@ -1822,6 +1810,7 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
              cfg=None):
     """Phase 9: the CT path, volumes -> 3D UNet -> marching tets -> weld
     -> one landmark batch, on the card."""
+    from shoulder_tpu_torch.config import DENSE_CONFIG
     from shoulder_tpu_torch.io import ingest, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
     from shoulder_tpu_torch.models import ct_unet
@@ -1830,7 +1819,7 @@ def ct_phase(dev, rf, seg2d, smi, shape=CT_SHAPE, pitch=CT_PITCH,
     from shoulder_tpu_torch.pipeline import ct
 
     t_phase = time.perf_counter()
-    cfg = cfg or ct_config()
+    cfg = cfg or DENSE_CONFIG
     n = len(CT_POSES)
     t0 = time.perf_counter()
     vols = [ct.synth_ct_volume(shape=shape, spacing=(pitch,) * 3, seed=1 + i,

@@ -308,21 +308,23 @@ class ProximalHumerus(Bone):
     _proximal = True
 
     def __init__(self, stl_file,
-                 config: cfg_mod.PipelineConfig = cfg_mod.DEFAULT_CONFIG,
+                 config: cfg_mod.PipelineConfig | None = None,
                  validate: bool = False, device="cuda"):
-        """``validate=True`` runs the landmarks before the constructor
+        """``config``: the pipeline's configuration; without one, the
+        smallest of ``config.PADDINGS`` that holds the mesh.
+        ``validate=True`` runs the landmarks before the constructor
         returns, so degenerate meshes raise here instead of at first
         landmark access.  The default stays lazy: the first access
         computes every landmark at once.  ``device``: where the landmarks
         and slice views run (raises when it names an absent card)."""
         with trace.span("humerus.init"):
             self._device = _device(device)
-            self._cfg = config
             self._tfrm = Transform()
             self.transform = self._tfrm.matrix
             with trace.span("humerus.load"):
                 self._spec = ingest.load_bone(
                     stl_file, proximal=self._proximal, config=config)
+                self._cfg = self._spec.config
                 self.stl_file = Path(stl_file)
                 self._mesh_ct = Mesh(self._spec.vertices_raw,
                                      self._spec.faces_raw,

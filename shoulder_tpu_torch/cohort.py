@@ -20,7 +20,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from shoulder_tpu_torch import config as config_mod
+from shoulder_tpu_torch.config import PipelineConfig
 from shoulder_tpu_torch.utils import trace
 
 # the per-bone result dict below reads only these Landmarks fields
@@ -34,7 +35,11 @@ SUMMARY_FIELDS = (
 
 
 def _prep_chunk(paths, proximal, config, batch_n, pin):
-    """Worker-thread stage: ingest and stack one batch on the host.
+    """Worker-thread stage: ingest one chunk of bones and stack it on the
+    host, one batch per padding: every bone at `config` or, with none, at
+    the smallest padding that holds it, so that a bone's row does not
+    depend on the sizes of its batch-mates.  Returns (positions in the
+    chunk, specs, host batch) for each padding, in order of first use.
 
     Short batches pad with a repeat of the last bone.
     """
@@ -45,8 +50,15 @@ def _prep_chunk(paths, proximal, config, batch_n, pin):
         ingest.load_bone(p, proximal=proximal, config=config) for p in paths
     ]
     trace.count("cohort.bones_ingested", len(specs))
-    padded = specs + [specs[-1]] * (batch_n - len(specs))
-    return specs, B.stack_host(padded, pin=pin)
+    groups = {}
+    for i, spec in enumerate(specs):
+        groups.setdefault(spec.config, []).append(i)
+    out = []
+    for idx in groups.values():
+        group = [specs[i] for i in idx]
+        padded = group + [group[-1]] * (batch_n - len(group))
+        out.append((idx, group, B.stack_host(padded, pin=pin)))
+    return out
 
 
 def _prefetch(request, *args):
@@ -79,7 +91,7 @@ def _summary(lms, n_real: int) -> dict:
 def process_cohort(
     stl_paths: Sequence,
     proximal: bool = False,
-    config: PipelineConfig = DEFAULT_CONFIG,
+    config: PipelineConfig | None = None,
     device_mesh=None,
     chunk: int = 150,
     batch_size: int = 8,
@@ -94,7 +106,10 @@ def process_cohort(
     multiple of their number.  Without one, the batch runs on `device`
     alone (default the card; there is no CPU fallback).  `batch_size`
     fixes the batch shape; the cohort streams through it with the next
-    batch's ingest prefetched.
+    batch's ingest prefetched.  Without `config`, each bone runs at the
+    smallest of `config.PADDINGS` that holds it: a chunk of `batch_size`
+    bones that needs two paddings runs as two batches.  Rows keep the
+    order of `stl_paths`.
     """
     from shoulder_tpu_torch.bone import _device
     from shoulder_tpu_torch.parallel import mesh as pmesh
@@ -107,15 +122,23 @@ def process_cohort(
     batch_size = max(batch_size, n_dev)
     batch_size += (-batch_size) % n_dev
     pin = any(d.type == "cuda" for d in device_mesh.devices)
+    fns = {}
+
+    def sharded(cfg):
+        """The sharded pipeline at `cfg`, built at its first batch."""
+        if cfg not in fns:
+            fns[cfg] = pmesh.sharded_landmark_fn(
+                device_mesh, proximal=proximal, cfg=cfg, chunk=chunk)
+        return fns[cfg]
+
     # models first, so the devices are initialized before the worker pins
-    sharded = pmesh.sharded_landmark_fn(device_mesh, proximal=proximal,
-                                        cfg=config, chunk=chunk)
+    sharded(config or config_mod.PADDINGS[0])
 
     path_chunks = [
         list(stl_paths[i:i + batch_size])
         for i in range(0, len(stl_paths), batch_size)
     ]
-    specs, sums = [], []
+    specs, sums, order = [], [], []
     # one request per chunk: its prefetch in the worker, the main thread's
     # wait for it (caused by that prefetch; its time also in the always-on
     # counter cohort.wait_ns), its batch and its read-back
@@ -126,7 +149,7 @@ def process_cohort(
         for ci, paths in enumerate(path_chunks):
             with trace.span("cohort.wait", request=requests[ci]):
                 t0 = time.perf_counter_ns()
-                prefetch_id, (chunk_specs, host) = fut.result()
+                prefetch_id, batches = fut.result()
                 trace.count("cohort.wait_ns", time.perf_counter_ns() - t0)
                 trace.caused_by(prefetch_id)
             if ci + 1 < len(path_chunks):
@@ -134,13 +157,16 @@ def process_cohort(
                 fut = ex.submit(_prefetch, requests[ci + 1],
                                 path_chunks[ci + 1], proximal, config,
                                 batch_size, pin)
-            # `host` stays referenced until the readback below has
-            # synchronized, so its pinned pages outlive the async copy
-            with trace.span("cohort.batch", request=requests[ci]):
-                lms = sharded(pmesh.shard_bones(host, device_mesh))
-            with trace.span("cohort.summary", request=requests[ci]):
-                sums.append(_summary(lms, len(chunk_specs)))
-            specs.extend(chunk_specs)
+            for idx, chunk_specs, host in batches:
+                # `host` stays referenced until the readback below has
+                # synchronized, so its pinned pages outlive the async copy
+                with trace.span("cohort.batch", request=requests[ci]):
+                    lms = sharded(chunk_specs[0].config)(
+                        pmesh.shard_bones(host, device_mesh))
+                with trace.span("cohort.summary", request=requests[ci]):
+                    sums.append(_summary(lms, len(chunk_specs)))
+                specs.extend(chunk_specs)
+                order.extend(ci * batch_size + i for i in idx)
 
     lm = {f: np.concatenate([s[f] for s in sums]) for f in SUMMARY_FIELDS}
     out = []
@@ -175,7 +201,8 @@ def process_cohort(
                 },
             }
         )
-    return out
+    # back to the order of stl_paths
+    return [out[i] for i in np.argsort(order)]
 
 
 def cohort_summary(results: list[dict]) -> dict:

@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+from shoulder_tpu_torch.utils import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class SliceSetConfig:
@@ -188,6 +190,43 @@ class PipelineConfig:
 
 
 DEFAULT_CONFIG = PipelineConfig()
+
+# DEFAULT_CONFIG's stacks at the padded sizes of a humerus mesh as dense as
+# the 1.0 mm CT surface (~260k faces, tools/eval_ct_pitch.py:37-50), and of
+# an STL exported from such a segmentation without simplifying it.  Such a
+# surface crosses up to ~750 faces on one plane (a 245,760-face synthetic
+# humerus of 480 rings x 256 sectors up to 522), past DEFAULT_CONFIG's k of
+# 384, and a plane's faces reach up to ~5,700 slots below it in z order:
+# so k 1024 and band 6144.
+DENSE_CONFIG = dataclasses.replace(
+    DEFAULT_CONFIG,
+    full=dataclasses.replace(DEFAULT_CONFIG.full, band=6144),
+    proximal=dataclasses.replace(DEFAULT_CONFIG.proximal, band=6144),
+    distal=dataclasses.replace(DEFAULT_CONFIG.distal, band=6144),
+    slice_compact_k=1024,
+    max_faces=300000,
+    max_verts=160000,
+    max_chain=1024,
+)
+
+# the paddings an entry point chooses from when its caller names no config,
+# smallest first
+PADDINGS = (DEFAULT_CONFIG, DENSE_CONFIG)
+
+
+def by_size(n_faces: int, n_verts: int) -> PipelineConfig:
+    """The size rule: the first of PADDINGS that holds a mesh of `n_faces`
+    faces and `n_verts` vertices; raises past the last.  A mesh it pads
+    past the first counts in `ingest.dense`."""
+    for cfg in PADDINGS:
+        if n_faces <= cfg.max_faces and n_verts <= cfg.max_verts:
+            if cfg is not PADDINGS[0]:
+                trace.count("ingest.dense")
+            return cfg
+    sizes = ", ".join(f"{c.max_faces} faces / {c.max_verts} verts"
+                      for c in PADDINGS)
+    raise ValueError(f"mesh of {n_faces} faces / {n_verts} verts exceeds "
+                     f"every padding ({sizes})")
 
 
 def tiny_config(max_faces: int = 8192, max_verts: int = 6144) -> PipelineConfig:

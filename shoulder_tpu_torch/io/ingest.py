@@ -25,7 +25,8 @@ from pathlib import Path
 import numpy as np
 import scipy.signal
 
-from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from shoulder_tpu_torch import config as config_mod
+from shoulder_tpu_torch.config import PipelineConfig
 from shoulder_tpu_torch.host import obb as obb_host
 from shoulder_tpu_torch.host import slicing_np
 from shoulder_tpu_torch.io import stl
@@ -63,6 +64,9 @@ class BoneSpec:
     # STL face index, which keeps loop-start selection and therefore every
     # contour identical to the unsorted formulation
     face_orig: np.ndarray = None
+
+    # the config the bone was padded for, at which its landmarks run
+    config: PipelineConfig = None
 
 
 def _pad(arr, n, fill):
@@ -173,8 +177,9 @@ def _head_end(verts, faces, neighbors, z_min, z_max, proximal, config):
 def load_bone(
     path,
     proximal: bool = False,
-    config: PipelineConfig = DEFAULT_CONFIG,
+    config: PipelineConfig | None = None,
 ) -> BoneSpec:
+    """`spec_from_arrays` of an STL file."""
     path = Path(path)
     verts_ct, faces, neighbors, watertight = stl.load_indexed(path)
     return spec_from_arrays(
@@ -191,10 +196,13 @@ def spec_from_arrays(
     neighbors,
     watertight: bool,
     proximal: bool = False,
-    config: PipelineConfig = DEFAULT_CONFIG,
+    config: PipelineConfig | None = None,
 ) -> BoneSpec:
     """Build a BoneSpec from an already-indexed mesh (STL path, CT surface
-    extraction, or any in-memory mesh)."""
+    extraction, or any in-memory mesh), padded to `config`, or with none,
+    to the smallest padding that holds it (`config.by_size`)."""
+    if config is None:
+        config = config_mod.by_size(faces.shape[0], verts_ct.shape[0])
     to_obb, extents = obb_host.oriented_bounds(verts_ct)
     verts = verts_ct @ to_obb[:3, :3].T + to_obb[:3, 3]
     z_min, z_max = float(verts[:, 2].min()), float(verts[:, 2].max())
@@ -239,4 +247,5 @@ def spec_from_arrays(
         vertices_raw=verts_ct,
         faces_raw=faces,
         neighbors_raw=neighbors,
+        config=config,
     )

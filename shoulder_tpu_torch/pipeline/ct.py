@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shoulder_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
+from shoulder_tpu_torch.config import PipelineConfig
 from shoulder_tpu_torch.io import ingest as ingest_mod
 from shoulder_tpu_torch.io import native
 from shoulder_tpu_torch.ops import marching_tets
@@ -135,12 +135,13 @@ def volume_to_spec(
     origin,
     spacing,
     iso: float,
-    config: PipelineConfig = DEFAULT_CONFIG,
+    config: PipelineConfig | None = None,
     max_tris: int = 393216,
     device="cuda",
 ):
     """Volume -> marching-tets surface on `device` -> one device-to-host
-    copy of the valid triangles -> native weld -> BoneSpec (host)."""
+    copy of the valid triangles -> native weld -> BoneSpec (host), padded
+    to `config` or, with none, to the smallest padding that holds it."""
     from shoulder_tpu_torch.bone import _device
 
     vol = torch.as_tensor(volume, dtype=torch.float32, device=_device(device))
@@ -162,14 +163,15 @@ def volume_to_spec(
 
 
 def landmarks_from_volume(volume, origin, spacing, method="threshold",
-                          config: PipelineConfig = DEFAULT_CONFIG,
+                          config: PipelineConfig | None = None,
                           device="cuda"):
-    """The whole CT path for one volume: (numpy Landmarks, BoneSpec)."""
+    """The whole CT path for one volume: (numpy Landmarks, BoneSpec), at
+    `config` or, with none, at the padding the mesh takes."""
     from shoulder_tpu_torch.pipeline import batch as B
 
     seg, iso = segment_volume(volume, method, device=device)
     spec = volume_to_spec(seg, origin, spacing, iso, config=config,
                           device=device)
     bt = B.stack_bones([spec], seg.device)
-    lm = B.compute_landmarks_batch(bt, cfg=config)
+    lm = B.compute_landmarks_batch(bt, cfg=spec.config)
     return B.landmarks_to_numpy(lm), spec

@@ -644,11 +644,11 @@ GRAPH_CASES = {  # (config, bones a batch, distinct batches)
 
 
 def _graph_batches(tmp_path, case):
-    from shoulder_tpu_torch.config import DEFAULT_CONFIG
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG, DENSE_CONFIG
     from shoulder_tpu_torch.pipeline import batch as B
 
     cfg_name, n, n_batches = GRAPH_CASES[case]
-    cfg = chip_smoke.ct_config() if cfg_name == "ct" else DEFAULT_CONFIG
+    cfg = DENSE_CONFIG if cfg_name == "ct" else DEFAULT_CONFIG
     specs = []
     for i in range(n * n_batches):
         v, f = synthetic_humerus(side=("left", "right")[i % 2],
@@ -756,3 +756,93 @@ def test_cuda_failed_capture_falls_back_eagerly(card, tmp_path,
     # the first call, the failed key's eager calls after its capture
     assert trace.counter("graphs.eager") == GRAPHED_CALLS + 2
     graphs.clear()
+
+
+# the dense cell's bone (benchmark/configs/mesh_unet_dense.json): 480 rings
+# x 256 sectors, 245,760 faces and 122,882 vertices
+DENSE_MESH = dict(n_rings=480, n_theta=256)
+
+
+@pytest.fixture(scope="module")
+def dense_paths(tmp_path_factory):
+    """STL files: a dense humerus, a dense proximal humerus, and a bone
+    DEFAULT_CONFIG holds."""
+    d = tmp_path_factory.mktemp("dense")
+    out = {}
+    for i, name in enumerate(("humerus", "proximal", "default")):
+        mesh = DENSE_MESH if name != "default" else {}
+        v, f = synthetic_humerus(side=("left", "right")[i % 2],
+                                 proximal_only=name == "proximal",
+                                 rng_transform=np.random.default_rng(80 + i),
+                                 **mesh)
+        out[name] = d / f"{name}.stl"
+        stl.write_stl(out[name], v, f)
+    return out
+
+
+def _same_tree(got, want):
+    """Landmark dicts (nested, as the facade and the cohort give them)
+    equal bit for bit."""
+    assert got.keys() == want.keys()
+    for k in want:
+        if isinstance(want[k], dict):
+            _same_tree(got[k], want[k])
+        else:
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), k
+
+
+@pytest.mark.parametrize("entry", ["humerus", "proximal", "cohort", "ct"])
+def test_cuda_entry_points_pad_dense_meshes(card, dense_paths, entry):
+    """Without a config, a ~250k-face mesh runs at DENSE_CONFIG, bit for
+    bit its run with DENSE_CONFIG named: the facade, the cohort (a dense
+    bone at DENSE_CONFIG, the bones DEFAULT_CONFIG holds at it, bit for bit
+    their cohort alone, rows in input order) and the CT path at 1.0 mm;
+    each dense bone counts in ingest.dense."""
+    from shoulder_tpu_torch import bone, cohort
+    from shoulder_tpu_torch.config import DEFAULT_CONFIG, DENSE_CONFIG
+
+    trace.reset(["ingest.dense"])
+    if entry in ("humerus", "proximal"):
+        cls = bone.Humerus if entry == "humerus" else bone.ProximalHumerus
+        got = cls(dense_paths[entry])
+        assert got._spec.config is DENSE_CONFIG
+        assert trace.counter("ingest.dense") == 1
+        _same_tree(got._landmarks(),
+                   cls(dense_paths[entry], config=DENSE_CONFIG)._landmarks())
+    elif entry == "cohort":
+        paths = [dense_paths["humerus"], dense_paths["default"],
+                 dense_paths["default"]]
+        got = cohort.process_cohort(paths, batch_size=2)
+        assert trace.counter("ingest.dense") == 1
+        # the bone DEFAULT_CONFIG holds: its row beside a dense bone is its
+        # row in a cohort of such bones alone
+        sparse = cohort.process_cohort(paths[1:], batch_size=2)
+        (dense,) = cohort.process_cohort(paths[:1], config=DENSE_CONFIG,
+                                         batch_size=2)
+        assert len(got) == 3
+        for g, w in zip(got, (dense, sparse[0], sparse[1])):
+            _same_tree(g, w)
+    else:
+        vol, origin, spacing = ct.synth_ct_volume(
+            shape=chip_smoke.CT_SHAPE, spacing=(chip_smoke.CT_PITCH,) * 3,
+            seed=1, noise_hu=15.0, **chip_smoke.CT_BONE_KW)
+        lm, spec = ct.landmarks_from_volume(vol, origin, spacing)
+        assert spec.config is DENSE_CONFIG
+        assert spec.n_faces > DEFAULT_CONFIG.max_faces
+        assert trace.counter("ingest.dense") == 1
+        want, _ = ct.landmarks_from_volume(vol, origin, spacing,
+                                           config=DENSE_CONFIG)
+        assert _same_bits([np.asarray(x) for x in lm],
+                          [np.asarray(x) for x in want])
+
+
+def test_cuda_dense_cell_is_correct(card):
+    """The cell mesh_unet_dense.batch8 end to end on the card at a small
+    size (benchmark/tests/dense.py: a 12,288-face mesh past the small
+    padding), against the plain reference."""
+    from benchmark.tests import dense
+
+    result, correct = dense.run(card)
+    assert correct and result["failed"] == 0 and result["attempted"] > 0
+    assert result["device"]["platform"] == "gpu"

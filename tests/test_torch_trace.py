@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from shoulder_tpu_torch import bone, cohort
+from shoulder_tpu_torch import config as config_mod
 from shoulder_tpu_torch.config import tiny_config
 from shoulder_tpu_torch.io import ingest, stl
 from shoulder_tpu_torch.io.testdata import synthetic_humerus
@@ -42,6 +43,9 @@ INGEST_SPANS = ("ingest.read_weld", "ingest.spec", "ingest.obb",
 # graph_hit_share.py reads the replays and the eager calls)
 GRAPH_COUNTERS = ("graphs.captures", "graphs.replays", "graphs.eager",
                   "graphs.fallbacks")
+# io/ingest.py's always-on counter: bones the size rule padded past the
+# first of config.PADDINGS
+INGEST_COUNTERS = ("ingest.dense",)
 
 
 @pytest.fixture(autouse=True)
@@ -325,3 +329,16 @@ def test_graph_counters_are_named_and_count_nothing_on_the_cpu(paths):
     B.compute_landmarks_batch(B.stack_bones([spec], "cpu"),
                               forest.load_params("cpu"), cfg=CFG)
     assert all(trace.counter(name) == 0 for name in GRAPH_COUNTERS)
+
+
+def test_ingest_counts_the_bones_padded_past_the_first_step(monkeypatch,
+                                                            paths):
+    """A bone that the first padding cannot hold, ingested without a
+    config, counts once in ingest.dense; one with a config, never."""
+    small = tiny_config(max_faces=2048, max_verts=1024)
+    monkeypatch.setattr(config_mod, "PADDINGS", (small, CFG))
+    (name,) = INGEST_COUNTERS
+    assert ingest.load_bone(paths[0]).config is CFG
+    assert trace.counter(name) == 1
+    ingest.load_bone(paths[0], config=CFG)
+    assert trace.counter(name) == 1

@@ -6,7 +6,7 @@ each, beside the direct analytic mesh of the same generator bone, through
 the JAX package's and the port's landmark pipelines on the CPU, at
 tools/eval_ct_pitch.py's config (--config tiny: tiny_config widths with
 the CT mesh sizes, max_faces 300,000, band 6144, k 1024) or at
-chip_smoke.py's phase-9 config (--config default: DEFAULT_CONFIG's widths
+the port's DENSE_CONFIG (--config default: DEFAULT_CONFIG's widths
 and UNet segmenter with the same sizes).  Prints per bone both
 packages' metrics, the port's difference to JAX on the same mesh, and each
 package's CT-vs-direct-mesh difference: whether an offset of a CT bone
@@ -37,14 +37,16 @@ METRICS = ("neckshaft", "retroversion", "radius_curvature", "neck_z")
 
 def ct_config(config_module, which):
     """For either package: tools/eval_ct_pitch.py's make_cfg ("tiny") or
-    chip_smoke.ct_config() ("default")."""
+    the port's DENSE_CONFIG ("default")."""
     if which == "default":
-        base = config_module.DEFAULT_CONFIG
-        return dataclasses.replace(
-            base, max_faces=300000, max_verts=160000, max_chain=1024,
-            slice_compact_k=1024,
-            **{name: dataclasses.replace(getattr(base, name), band=6144)
-               for name in ("full", "proximal", "distal")})
+        from shoulder_tpu_torch.config import DENSE_CONFIG
+
+        fields = {f.name: getattr(DENSE_CONFIG, f.name)
+                  for f in dataclasses.fields(DENSE_CONFIG)}
+        for name in ("full", "proximal", "distal"):
+            fields[name] = config_module.SliceSetConfig(
+                **dataclasses.asdict(fields[name]))
+        return config_module.PipelineConfig(**fields)
     slice_cfg = config_module.SliceSetConfig
     return dataclasses.replace(
         config_module.tiny_config(max_faces=300000, max_verts=160000),

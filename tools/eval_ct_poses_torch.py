@@ -43,6 +43,7 @@ def main():
                     help="directory for the first seed's welded CT meshes")
     args = ap.parse_args()
 
+    from shoulder_tpu_torch.config import DENSE_CONFIG as cfg
     from shoulder_tpu_torch.io import ingest, stl
     from shoulder_tpu_torch.io.testdata import synthetic_humerus
     from shoulder_tpu_torch.models import forest, unet
@@ -51,7 +52,6 @@ def main():
 
     print(cs.card())
     dev = torch.device("cuda:0")
-    cfg = cs.ct_config()
     rf, seg2d = forest.load_params(dev), unet.load_model(dev)
 
     def landmarks(specs):

@@ -7,7 +7,7 @@ beside another tree's build of the same kernel, in turns.
 Shapes: the neck planes of chip_smoke.py's phase 4 batch (8 synthetic
 humeri at DEFAULT_CONFIG: k 512, band 2048, max_chain 2048, "central")
 and of phase 9's CT batch (4 1.0 mm volumes through the 3D UNet, marching
-tets and the weld, at chip_smoke.ct_config(): k 1024, band 6144, max_chain
+tets and the weld, at config.DENSE_CONFIG: k 1024, band 6144, max_chain
 1024), each recorded from one compute_landmarks_batch.
 
 For each shape: the kernel against the plain composition (n, overflow,
@@ -119,10 +119,10 @@ def neck_args(dev, td, rf, seg):
 
 def ct_args(dev, rf, seg):
     """Phase 9's CT batch: its raw-loop call's arguments."""
+    from shoulder_tpu_torch.config import DENSE_CONFIG as cfg
     from shoulder_tpu_torch.pipeline import batch as B
     from shoulder_tpu_torch.pipeline import ct
 
-    cfg = cs.ct_config()
     specs = []
     for i, (side, rv, ns) in enumerate(cs.CT_POSES):
         vol, origin, spacing = ct.synth_ct_volume(
