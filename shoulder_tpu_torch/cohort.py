@@ -2,17 +2,24 @@
 
 Port of shoulder_tpu/cohort.py.  Bones run in fixed-size batches (a short
 last batch pads with a repeat of its last bone; results drop the pad).
-While the device runs one batch, a worker thread ingests the next (STL
-parse, OBB, head detection) and stacks it into page-locked host memory;
-the worker touches no stream and launches nothing.  Each batch runs
-through parallel/mesh.py's sharded pipeline: the main thread splits it
-over the mesh's devices (one shard on `device` when no mesh is given),
-copies each shard with `non_blocking=True` on the current stream, and
-reads back only the SUMMARY_FIELDS, in one copy per shard.
+While the device runs one batch, a pool of host threads ingests the
+bones of the next two (STL parse, OBB, head detection), one task a
+bone, in the order of the paths, so a thread that finishes one chunk's
+last bone starts on the next chunk's; for each chunk a prefetch thread
+waits for its bones and stacks them into page-locked host memory.
+Neither touches a stream or launches anything.  The pool's size follows
+the CPUs the process may use (`_pool_size`).  Each batch runs through
+parallel/mesh.py's sharded pipeline: the main thread splits it over the
+mesh's devices (one shard on `device` when no mesh is given), copies
+each shard with `non_blocking=True` on the current stream, and reads
+back only the SUMMARY_FIELDS, in one copy per shard.
 """
 
 from __future__ import annotations
 
+import collections
+import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
@@ -34,21 +41,71 @@ SUMMARY_FIELDS = (
 )
 
 
-def _prep_chunk(paths, proximal, config, batch_n, pin):
-    """Worker-thread stage: ingest one chunk of bones and stack it on the
-    host, one batch per padding: every bone at `config` or, with none, at
+# chunks whose ingest runs ahead of the main thread: the one it waits
+# for next and the one after, so the pool does not stop at a chunk's end
+AHEAD = 2
+# threads past which a pass of mesh_unet.cohort64 stopped gaining on the
+# card's 8-core host (PERF.md, section 6): numpy's head detection
+# and presort hold the GIL
+POOL_CAP = 4
+
+
+def _pool_size(n_bones: int) -> int:
+    """Host threads that ingest a cohort of `n_bones`: the CPUs this
+    process may use, less one for the main thread's dispatch, at most
+    `n_bones` and POOL_CAP; 1 on one CPU."""
+    usable = len(os.sched_getaffinity(0))
+    return max(1, min(usable - 1, n_bones, POOL_CAP))
+
+
+class _Ingest:
+    """One pass's bone ingest on a pool of threads, one task a bone.  A
+    bone whose ingest starts while another of the pass is still being
+    ingested counts in `cohort.ingest_overlap`."""
+
+    def __init__(self, pool, proximal, config):
+        self.pool, self.proximal, self.config = pool, proximal, config
+        self.running = 0
+        self.lock = threading.Lock()
+        # the counter exists from the first pass on, so a pass without
+        # overlap reads 0
+        trace.count("cohort.ingest_overlap", 0)
+
+    def submit(self, path, parent, request):
+        """`ingest.load_bone(path)` as a task whose spans are children of
+        the span `parent` of another thread."""
+        return self.pool.submit(self._load, path, parent, request)
+
+    def _load(self, path, parent, request):
+        from shoulder_tpu_torch.io import ingest
+
+        with self.lock:
+            overlap = self.running > 0
+            self.running += 1
+        if overlap:
+            trace.count("cohort.ingest_overlap")
+        try:
+            with trace.under(parent, request):
+                return ingest.load_bone(path, proximal=self.proximal,
+                                        config=self.config)
+        finally:
+            with self.lock:
+                self.running -= 1
+
+
+def _prep_chunk(bones, batch_n, pin):
+    """Prefetch-thread stage: wait for one chunk's bones (futures of
+    BoneSpecs, in the chunk's order) and stack them on the host, one
+    batch per padding: every bone at the pass's config or, with none, at
     the smallest padding that holds it, so that a bone's row does not
     depend on the sizes of its batch-mates.  Returns (positions in the
     chunk, specs, host batch) for each padding, in order of first use.
 
     Short batches pad with a repeat of the last bone.
     """
-    from shoulder_tpu_torch.io import ingest
     from shoulder_tpu_torch.pipeline import batch as B
 
-    specs = [
-        ingest.load_bone(p, proximal=proximal, config=config) for p in paths
-    ]
+    specs = [bone.result() for bone in bones]
     trace.count("cohort.bones_ingested", len(specs))
     groups = {}
     for i, spec in enumerate(specs):
@@ -61,10 +118,12 @@ def _prep_chunk(paths, proximal, config, batch_n, pin):
     return out
 
 
-def _prefetch(request, *args):
-    """`_prep_chunk` in the worker as the span `cohort.prefetch` of the
-    chunk's request: (the span's id, its result)."""
-    with trace.span("cohort.prefetch", request=request) as span_id:
+def _prefetch(span_id, request, *args):
+    """`_prep_chunk` in a prefetch thread as the span `cohort.prefetch`
+    (id `span_id`, the parent of its bones' spans) of the chunk's request:
+    (the span's id, its result)."""
+    with trace.span("cohort.prefetch", request=request,
+                    span_id=span_id) as span_id:
         return span_id, _prep_chunk(*args)
 
 
@@ -106,10 +165,11 @@ def process_cohort(
     multiple of their number.  Without one, the batch runs on `device`
     alone (default the card; there is no CPU fallback).  `batch_size`
     fixes the batch shape; the cohort streams through it with the next
-    batch's ingest prefetched.  Without `config`, each bone runs at the
-    smallest of `config.PADDINGS` that holds it: a chunk of `batch_size`
-    bones that needs two paddings runs as two batches.  Rows keep the
-    order of `stl_paths`.
+    two batches' ingest prefetched on a pool of host threads.  Without
+    `config`, each bone runs at the smallest of `config.PADDINGS` that
+    holds it: a chunk of `batch_size` bones that needs two paddings runs
+    as two batches.  Rows keep the order of `stl_paths`; an ingest that
+    raises raises here.
     """
     from shoulder_tpu_torch.bone import _device
     from shoulder_tpu_torch.parallel import mesh as pmesh
@@ -131,7 +191,8 @@ def process_cohort(
                 device_mesh, proximal=proximal, cfg=cfg, chunk=chunk)
         return fns[cfg]
 
-    # models first, so the devices are initialized before the worker pins
+    # models first, so the devices are initialized before a prefetch
+    # thread pins
     sharded(config or config_mod.PADDINGS[0])
 
     path_chunks = [
@@ -139,34 +200,57 @@ def process_cohort(
         for i in range(0, len(stl_paths), batch_size)
     ]
     specs, sums, order = [], [], []
-    # one request per chunk: its prefetch in the worker, the main thread's
-    # wait for it (caused by that prefetch; its time also in the always-on
-    # counter cohort.wait_ns), its batch and its read-back
+    # one request per chunk: its prefetch in a prefetch thread, holding the
+    # spans of its bones' ingest in the pool, the main thread's wait for it
+    # (caused by that prefetch; its time also in the always-on counter
+    # cohort.wait_ns), its batch and its read-back
     requests = [trace.new_request() for _ in path_chunks]
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(_prefetch, requests[0], path_chunks[0], proximal,
-                        config, batch_size, pin)
-        for ci, paths in enumerate(path_chunks):
+    pool = ThreadPoolExecutor(_pool_size(len(stl_paths)),
+                              thread_name_prefix="cohort-ingest")
+    stager = ThreadPoolExecutor(AHEAD, thread_name_prefix="cohort-prefetch")
+    bones = _Ingest(pool, proximal, config)
+
+    def prefetch(ci):
+        """Chunk ci's bones onto the pool, after every earlier chunk's,
+        and their wait and stacking onto a prefetch thread."""
+        span_id = trace.new_span_id()
+        futures = [bones.submit(p, span_id, requests[ci])
+                   for p in path_chunks[ci]]
+        return stager.submit(_prefetch, span_id, requests[ci], futures,
+                             batch_size, pin)
+
+    try:
+        ahead = collections.deque(
+            prefetch(ci) for ci in range(min(AHEAD, len(path_chunks))))
+        for ci in range(len(path_chunks)):
             with trace.span("cohort.wait", request=requests[ci]):
                 t0 = time.perf_counter_ns()
-                prefetch_id, batches = fut.result()
+                prefetch_id, batches = ahead.popleft().result()
                 trace.count("cohort.wait_ns", time.perf_counter_ns() - t0)
                 trace.caused_by(prefetch_id)
-            if ci + 1 < len(path_chunks):
-                # the next batch's ingest runs while the device runs this one
-                fut = ex.submit(_prefetch, requests[ci + 1],
-                                path_chunks[ci + 1], proximal, config,
-                                batch_size, pin)
+            runs = []
             for idx, chunk_specs, host in batches:
                 # `host` stays referenced until the readback below has
                 # synchronized, so its pinned pages outlive the async copy
                 with trace.span("cohort.batch", request=requests[ci]):
-                    lms = sharded(chunk_specs[0].config)(
-                        pmesh.shard_bones(host, device_mesh))
+                    runs.append((idx, chunk_specs, host, sharded(
+                        chunk_specs[0].config)(
+                            pmesh.shard_bones(host, device_mesh))))
+            if ci + AHEAD < len(path_chunks):
+                # later bones ingest while the device runs this chunk; they
+                # start once it is dispatched, so that a pool running ahead
+                # leaves the dispatch the GIL
+                ahead.append(prefetch(ci + AHEAD))
+            for idx, chunk_specs, _, lms in runs:
                 with trace.span("cohort.summary", request=requests[ci]):
                     sums.append(_summary(lms, len(chunk_specs)))
                 specs.extend(chunk_specs)
                 order.extend(ci * batch_size + i for i in idx)
+    finally:
+        # on an error, bones not yet started are dropped; the threads end
+        # with their current bone
+        pool.shutdown(cancel_futures=True)
+        stager.shutdown(cancel_futures=True)
 
     lm = {f: np.concatenate([s[f] for s in sums]) for f in SUMMARY_FIELDS}
     out = []

@@ -57,6 +57,7 @@ ingest_count = 0
 obb_count = 0
 
 _lib = None
+_lib_lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
@@ -134,9 +135,13 @@ def build(src_dir: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
 
 def library():
     """The built library, loaded once per process, with every entry's
-    argument types set."""
+    argument types set; threads that ask at once wait for one load."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         mesh_out = [ptr, i32, ptr, ptr, i32, ptr]

@@ -9,7 +9,10 @@ another thread that it waited for.  A span with no parent opens a new
 request; its children share that request.  Work handed to another
 thread is tied back by hand: the worker's span is given the request of
 the span that handed it the work (`request=`), and the span that waits
-for it names the worker's span as its cause (`caused_by`).
+for it names the worker's span as its cause (`caused_by`).  Work split
+over a pool names its parent on another thread: the parent's id is
+taken before it opens (`new_span_id`, then `span(..., span_id=)`), and each
+task opens its spans `under` that id and request.
 
 Timestamps are `time.time_ns()`, the clock of torch.profiler's events
 (`prof.profiler.kineto_results.trace_start_ns()` plus an event's
@@ -82,11 +85,29 @@ class _Noop:
 _NOOP = _Noop()
 
 
+class _Parent:
+    """A span of another thread standing at the bottom of this thread's
+    stack, so that spans opened over it are its children."""
+
+    __slots__ = ("id", "request", "cause")
+
+    def __init__(self, span_id, request):
+        self.id, self.request, self.cause = span_id, request, None
+
+    def __enter__(self):
+        _local.stack.append(self)
+
+    def __exit__(self, *exc):
+        _local.stack.pop()
+        return False
+
+
 class _Open:
     __slots__ = ("name", "request", "cause", "id", "parent", "start")
 
-    def __init__(self, name, request, cause):
+    def __init__(self, name, request, cause, span_id=None):
         self.name, self.request, self.cause = name, request, cause
+        self.id = span_id
 
     def __enter__(self):
         stack = _local.stack
@@ -99,7 +120,8 @@ class _Open:
             self.parent = None
             if self.request is None:
                 self.request = next(_requests)
-        self.id = next(_ids)
+        if self.id is None:
+            self.id = next(_ids)
         stack.append(self)
         self.start = time.time_ns()
         return self.id
@@ -112,14 +134,25 @@ class _Open:
         return False
 
 
-def span(name: str, request: int | None = None, cause: int | None = None):
+def span(name: str, request: int | None = None, cause: int | None = None,
+         span_id: int | None = None):
     """A context manager that records the span `name` while recording is
     on; entering it gives the span's id (None when off).  `request` and
     `cause` tie a span on a worker thread to the span that handed it the
-    work."""
+    work; `span_id`, from `new_span_id`, is an id already handed to tasks
+    on other threads as their parent."""
     if not _on:
         return _NOOP
-    return _Open(name, request, cause)
+    return _Open(name, request, cause, span_id)
+
+
+def under(span_id: int | None, request: int | None):
+    """A context manager within which spans opened on this thread are
+    children of the span `span_id` of another thread (from `new_span_id`)
+    and belong to its `request`; no change when `span_id` is None."""
+    if span_id is None:
+        return _NOOP
+    return _Parent(span_id, request)
 
 
 def spanned(name: str):
@@ -143,6 +176,13 @@ def caused_by(span_id: int | None) -> None:
         stack = _local.stack
         if stack:
             stack[-1].cause = span_id
+
+
+def new_span_id() -> int | None:
+    """A fresh span id, taken before its span opens (`span(..., span_id=)`),
+    to hand to tasks on other threads that open their spans `under` it
+    (None when recording is off)."""
+    return next(_ids) if _on else None
 
 
 def new_request() -> int | None:

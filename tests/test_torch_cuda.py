@@ -846,3 +846,31 @@ def test_cuda_dense_cell_is_correct(card):
     result, correct = dense.run(card)
     assert correct and result["failed"] == 0 and result["attempted"] > 0
     assert result["device"]["platform"] == "gpu"
+
+
+def test_cuda_pooled_cohort_gives_the_serial_rows(card, tmp_path,
+                                                  monkeypatch):
+    """process_cohort on the card over 16 synthetic STL files (40,960
+    faces, DEFAULT_CONFIG, batches of 8): the pool of ingest threads the
+    card's host sizes gives the rows of the serial prefetch (a pool of
+    1), bit for bit and in the order of the paths."""
+    from shoulder_tpu_torch import cohort
+
+    paths = []
+    for i in range(16):
+        v, f = synthetic_humerus(side=("left", "right")[i % 2],
+                                 rng_transform=np.random.default_rng(90 + i))
+        paths.append(tmp_path / f"bone{i:02d}.stl")
+        stl.write_stl(paths[-1], v, f)
+    assert cohort._pool_size(len(paths)) > 1
+    with monkeypatch.context() as mp:
+        mp.setattr(cohort, "_pool_size", lambda n: 1)
+        serial = cohort.process_cohort(paths)
+    trace.reset(["cohort.ingest_overlap", "cohort.bones_ingested"])
+    pooled = cohort.process_cohort(paths)
+    assert trace.counter("cohort.bones_ingested") == 16
+    assert trace.counter("cohort.ingest_overlap") > 0
+    assert [r["name"] for r in pooled] == [p.stem for p in paths]
+    assert len(serial) == 16
+    for g, w in zip(pooled, serial):
+        _same_tree(g, w)

@@ -132,6 +132,48 @@ def test_worker_span_carries_request_and_cause():
     assert by["hand"].request != rid
 
 
+def test_pool_tasks_open_spans_under_a_parent_of_another_thread():
+    """Tasks on a pool, handed an id taken before its span opens, open
+    their spans under it on their own threads, in its request; the span
+    then opens with that id.  Off, nothing is taken or recorded."""
+    def task(parent, request):
+        with trace.under(parent, request):
+            with trace.span("task"):
+                with trace.span("step"):
+                    pass
+        with trace.span("after"):
+            pass
+
+    with trace.recording():
+        rid = trace.new_request()
+        pid = trace.new_span_id()
+        with ThreadPoolExecutor(max_workers=3) as ex:
+            futures = [ex.submit(task, pid, rid) for _ in range(6)]
+            with trace.span("parent", request=rid, span_id=pid) as got:
+                for f in futures:
+                    f.result()
+    spans = trace.spans()
+    by_id = {s.id: s for s in spans}
+    assert got == pid and by_id[pid].name == "parent"
+    assert by_id[pid].parent is None and by_id[pid].request == rid
+    tasks = [s for s in spans if s.name == "task"]
+    assert len(tasks) == 6 and len(by_id) == len(spans)
+    for s in tasks:
+        assert s.parent == pid and s.request == rid
+        assert s.thread != by_id[pid].thread
+    for s in spans:
+        if s.name == "step":
+            assert by_id[s.parent].name == "task" and s.request == rid
+        elif s.name == "after":
+            assert s.parent is None and s.request != rid
+    trace.reset()
+    assert trace.new_span_id() is None
+    with trace.under(None, None):
+        with trace.span("off"):
+            pass
+    assert trace.spans() == []
+
+
 def test_threads_lose_no_count_and_share_no_id():
     """More threads than cores, switching often: every count lands, every
     span gets its own id and its own thread's parent."""
